@@ -8,16 +8,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: the CUDA kernels (``tiny_mp2v_dec_tpu_torch/csrc/*.cu``, nvcc for
    sm_90a) and the native tokenizer, from this checkout into ``build/``;
-3. kernels: K1 (IDCT), K2 (luma MC+recon) and K3 (U+V MC+recon), each on
-   the card at the shapes a 1080p chunk gives it, compared with its plain
-   PyTorch version on the same inputs — exact equality, as all arithmetic
-   is integer — and timed against it (median of CUDA-event-timed runs);
-4. end to end: the committed 16-picture 1080p 4:2:0 IBBP stream
-   (``tests/data/bench_1080p_420_16.m2v``) through ``MP2VDecoder`` on
-   ``cuda`` with launch counts reset just before; every kernel must have
-   launched, and the YUV sha256 must equal the one recorded from the JAX
-   package (``tests/data/bench_1080p_420_16.json``); then warm decode
-   frames/s.
+3. kernels: K1 (IDCT), K2 (luma MC+recon), K3 (U+V MC+recon, at the
+   chroma tile of every format: 8x8, 16x8, 16x16) and K4 (their field
+   form: luma 16x16, chroma at every tile), each on the card at the shapes
+   a 1080-line chunk gives it, with ``bidir`` True and False, compared with
+   its plain PyTorch version on the same inputs — exact equality, as all
+   arithmetic is integer — and timed against it (device time per call,
+   see :func:`cuda_ms`);
+4. end to end, two paths through ``MP2VDecoder`` on ``cuda``, each with
+   the launch counts reset just before and read just after its decode:
+   the committed 16-picture 1080p 4:2:0 IBBP stream
+   (``tests/data/bench_1080p_420_16.m2v``: K1, K2, K3) and the interlaced
+   1080-line 4:2:2 stream with field motion and field DCT
+   (``tests/data/interlaced_1080_422_16.m2v``: K1 and K4).  Every kernel of
+   a path must have launched, and each YUV sha256 must equal the one
+   recorded from the JAX package (the ``.json`` beside each stream); then
+   warm decode frames/s of each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -34,7 +40,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
-FIXTURE = os.path.join(REPO, "tests", "data", "bench_1080p_420_16")
+DATA = os.path.join(REPO, "tests", "data")
+# end-to-end paths: fixture -> the kernels its decode must launch
+PATHS = {
+    "bench_1080p_420_16": ("idct8x8", "mc_recon_luma", "mc_recon_uv"),
+    "interlaced_1080_422_16": ("idct8x8", "mc_field_luma", "mc_field_uv"),
+}
 TIMED_RUNS = 20
 DECODE_RUNS = 5
 
@@ -44,21 +55,47 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` CUDA-event-timed runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
+_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms(torch) -> float:
+    """GPU clock cycles per millisecond of ``torch.cuda._sleep``, timed once
+    with CUDA events."""
+    if not _CYCLES_PER_MS:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        torch.cuda._sleep(10_000_000)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        _CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def cuda_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``runs`` calls back to back
+    between two CUDA events, queued behind a GPU sleep that outlasts the
+    host's enqueue of all of them, so that the host's per-call work (the
+    wrapper's checks, ``ctypes``, allocation) does not show as device
+    time; the mean over the runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # generous: the sleep ends before the start event, so it costs no time
+    torch.cuda._sleep(int((4 * enqueue_ms + 10) * _sleep_cycles_per_ms(torch)))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def max_abs_err(torch, got, ref) -> int:
@@ -86,35 +123,49 @@ def check_idct(torch, np, rng):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def mc_inputs(torch, np, rng, H, W, tile):
+def mc_inputs(torch, np, rng, H, W, th, tw, field):
     """Random refs, residual and per-MB metadata for one (H, W) plane of
-    (tile x tile) MBs: MVs cover all four half-pel phases and the edge
-    clamps; modes cover every combination of fwd/bwd/coded."""
+    (th x tw) MBs: MVs cover all four half-pel phases and the edge clamps;
+    modes cover every combination of fwd/bwd/coded.  ``field``: also the
+    field tuples of both directions (random field selects, MVs of both
+    units), with the field bit on about half the MBs."""
     from tiny_mp2v_dec_tpu_torch.ops.mc_fused import mc_meta
-    mbh, mbw = H // tile, W // tile
+    mbh, mbw = H // th, W // tw
     n = mbh * mbw
     dev = torch.device("cuda")
-    plane = lambda: torch.from_numpy(  # noqa: E731
-        rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
-    resid = lambda: torch.from_numpy(  # noqa: E731
-        rng.integers(-300, 300, (H, W)).astype(np.int16)).to(dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    plane = lambda: t(rng.integers(0, 256, (H, W)).astype(np.uint8))  # noqa
+    resid = lambda: t(  # noqa: E731
+        rng.integers(-300, 300, (H, W)).astype(np.int16))
     mb_y, mb_x = np.divmod(np.arange(n), mbw)
-    pos_y = torch.from_numpy((mb_y * tile).astype(np.int32)).to(dev)
-    pos_x = torch.from_numpy((mb_x * tile).astype(np.int32)).to(dev)
-    mv = torch.from_numpy(
-        rng.integers(-64, 64, (n, 2, 2)).astype(np.int16)).to(dev)
-    fwd = mc_meta(pos_y, pos_x, mv[:, 0, 0], mv[:, 0, 1], H, W, tile, tile)
-    bwd = mc_meta(pos_y, pos_x, mv[:, 1, 0], mv[:, 1, 1], H, W, tile, tile)
-    mode = torch.from_numpy(
-        rng.permutation(np.arange(n) % 8).astype(np.int32)).to(dev)
-    return plane, resid, (*fwd, *bwd, mode)
+    pos_y = t((mb_y * th).astype(np.int32))
+    pos_x = t((mb_x * tw).astype(np.int32))
+    mv = t(rng.integers(-64, 64, (n, 2, 2, 2)).astype(np.int16))
+    meta = [*mc_meta(pos_y, pos_x, mv[:, 0, 0, 0], mv[:, 0, 0, 1], H, W,
+                     th, tw),
+            *mc_meta(pos_y, pos_x, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W,
+                     th, tw)]
+    mode = rng.permutation(np.arange(n) % 8)
+    if field:
+        # imported here: tools/ab_kernel_times.py runs the frame form on
+        # checkouts that have no field form
+        from tiny_mp2v_dec_tpu_torch.ops.mc_fused import mc_field_meta
+        mvfs = t(rng.integers(0, 2, (n, 2, 2)).astype(np.uint8))
+        mode = mode + 8 * (rng.random(n) < 0.5)
+        meta += [t(mode.astype(np.int32))] + [
+            mc_field_meta(pos_y, pos_x, mv[:, :, s], mvfs[:, :, s], H, W,
+                          th, tw) for s in range(2)]
+    else:
+        meta.append(t(mode.astype(np.int32)))
+    return plane, resid, meta
 
 
-def check_mc(torch, np, rng, name, H, W, tile, uv: bool):
-    """K2 (uv=False, one plane) or K3 (uv=True, U and V) with ``bidir``
-    True and False."""
+def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
+             field: bool = False):
+    """K2 (uv=False, one plane) or K3 (uv=True, U and V) — or, with
+    ``field``, K4 in that form — with ``bidir`` True and False."""
     from tiny_mp2v_dec_tpu_torch.ops import mc_fused
-    plane, resid, meta = mc_inputs(torch, np, rng, H, W, tile)
+    plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw, field)
     if uv:
         fn, ref_fn = mc_fused.fused_mc_recon_uv, mc_fused.fused_mc_recon_uv_ref
         args = ((plane(), plane()), (plane(), plane()), (resid(), resid()))
@@ -124,10 +175,10 @@ def check_mc(torch, np, rng, name, H, W, tile, uv: bool):
     out = {}
     for bidir in (True, False):
         def kern():
-            return fn(*args, *meta, h=tile, w=tile, bidir=bidir)
+            return fn(*args, *meta, h=th, w=tw, bidir=bidir)
 
         def plain():
-            return ref_fn(*args, *meta, h=tile, w=tile, bidir=bidir)
+            return ref_fn(*args, *meta, h=th, w=tw, bidir=bidir)
 
         got, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -139,12 +190,70 @@ def check_mc(torch, np, rng, name, H, W, tile, uv: bool):
                  f"(max abs err {err})")
         ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
         planes = "2 x " if uv else ""
-        print(f"{name} bidir={bidir}: {planes}{H}x{W}, equal to plain; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"{name} bidir={bidir}: {planes}{H}x{W} in {th}x{tw} tiles, "
+              f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if bidir:   # the record carries the B-picture (bidir) form
             out = {"ms": ms, "plain_ms": plain_ms}
         out["max_abs_err"] = max(out.get("max_abs_err", 0), err)
     return out
+
+
+def check_chroma_tiles(torch, np, rng, name, field):
+    """K3 (or K4) at the chroma tile of each format; the record keeps the
+    interlaced 4:2:2 path's 16x8 form for K4 and the 4:2:0 path's 8x8 form
+    for K3, and the largest error of all."""
+    recs = {tile: check_mc(torch, np, rng, f"{name} {label}", H, W, *tile,
+                           uv=True, field=field)
+            for label, tile, H, W in (("4:2:0", (8, 8), 544, 960),
+                                      ("4:2:2", (16, 8), 1088, 960),
+                                      ("4:4:4", (16, 16), 1088, 1920))}
+    rec = dict(recs[(16, 8) if field else (8, 8)])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    return rec
+
+
+def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, kernels):
+    """Decode one fixture through the decoder's entry point with the launch
+    counts reset just before and read just after; check the hash and that
+    every kernel of the path launched; then time warm decodes.  Returns
+    (launches, frames/s)."""
+    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
+        data = f.read()
+    with open(os.path.join(DATA, name + ".json")) as f:
+        want = json.load(f)
+    if hashlib.sha256(data).hexdigest() != want["stream_sha256"]:
+        fail(f"{name}: the stream fixture does not match its recorded "
+             f"sha256")
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
+                                    pictures_pool_size=0, device="cuda"))
+    _build.LAUNCHES.clear()
+    frames = dec.decode(data)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    digest, n_bytes = yuv_sha256(frames)
+    print(f"decode {name}: {len(frames)} frames, {n_bytes} YUV bytes, "
+          f"sha256 {digest}; launches {launches}")
+    if len(frames) != want["frames"] or n_bytes != want["yuv_bytes"]:
+        fail(f"{name}: decoded {len(frames)} frames / {n_bytes} bytes, "
+             f"expected {want['frames']} / {want['yuv_bytes']}")
+    if digest != want["yuv_sha256"]:
+        fail(f"{name}: YUV sha256 {digest} != JAX reference "
+             f"{want['yuv_sha256']}")
+    for k in kernels:
+        if launches.get(k, 0) < 1:
+            fail(f"{name}: the decode never launched kernel {k}")
+    walls = []
+    for _ in range(DECODE_RUNS):
+        dec.reset()
+        t0 = time.perf_counter()
+        frames = dec.decode(data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    fps = len(frames) / wall
+    print(f"decode {name} warm: median {wall:.4f} s over {DECODE_RUNS} "
+          f"runs = {fps:.2f} frames/s (best {min(walls):.4f} s)")
+    return launches, fps
 
 
 def yuv_sha256(frames) -> tuple:
@@ -163,9 +272,11 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
-    if not os.path.isdir(PACKAGE) or not os.path.exists(FIXTURE + ".m2v"):
-        fail(f"run from a checkout of the repository: {PACKAGE} or "
-             f"{FIXTURE}.m2v is missing")
+    missing = [p for p in [PACKAGE] + [os.path.join(DATA, n + ".m2v")
+                                       for n in PATHS]
+               if not os.path.exists(p)]
+    if missing:
+        fail(f"run from a checkout of the repository: {missing} missing")
     sys.path.insert(0, REPO)
     from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder
     from tiny_mp2v_dec_tpu_torch.ops import _build
@@ -192,63 +303,45 @@ def main() -> int:
     print(f"build: CUDA kernels {t1 - t0:.1f} s (nvcc sm_90a), "
           f"tokenizer {t2 - t1:.1f} s (g++)")
 
-    # 3) kernels against their plain versions, at 1080p shapes
+    # 3) kernels against their plain versions, at 1080-line shapes
     rng = np.random.default_rng(2024)
     rec = {
         "idct8x8": check_idct(torch, np, rng),
         "mc_recon_luma": check_mc(torch, np, rng, "K2 mc_recon_luma",
-                                  1088, 1920, 16, uv=False),
-        "mc_recon_uv": check_mc(torch, np, rng, "K3 mc_recon_uv",
-                                544, 960, 8, uv=True),
+                                  1088, 1920, 16, 16, uv=False),
+        "mc_recon_uv": check_chroma_tiles(torch, np, rng, "K3 mc_recon_uv",
+                                          field=False),
+        "mc_field_luma": check_mc(torch, np, rng, "K4 mc_field_luma",
+                                  1088, 1920, 16, 16, uv=False, field=True),
+        "mc_field_uv": check_chroma_tiles(torch, np, rng, "K4 mc_field_uv",
+                                          field=True),
     }
 
-    # 4) end to end through the decoder's entry point
-    with open(FIXTURE + ".m2v", "rb") as f:
-        data = f.read()
-    with open(FIXTURE + ".json") as f:
-        want = json.load(f)
-    if hashlib.sha256(data).hexdigest() != want["stream_sha256"]:
-        fail("the stream fixture does not match its recorded sha256")
-    dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
-                                    pictures_pool_size=0, device="cuda"))
-    _build.LAUNCHES.clear()
-    frames = dec.decode(data)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    digest, n_bytes = yuv_sha256(frames)
-    print(f"decode: {len(frames)} frames, {n_bytes} YUV bytes, sha256 "
-          f"{digest}; launches {launches}")
-    if len(frames) != want["frames"] or n_bytes != want["yuv_bytes"]:
-        fail(f"decoded {len(frames)} frames / {n_bytes} bytes, expected "
-             f"{want['frames']} / {want['yuv_bytes']}")
-    if digest != want["yuv_sha256"]:
-        fail(f"YUV sha256 {digest} != JAX reference {want['yuv_sha256']}")
-    for name in rec:
-        if launches.get(name, 0) < 1:
-            fail(f"the decode never launched kernel {name}")
-    walls = []
-    for _ in range(DECODE_RUNS):
-        dec.reset()
-        t0 = time.perf_counter()
-        frames = dec.decode(data)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    print(f"decode warm: median {wall:.4f} s over {DECODE_RUNS} runs = "
-          f"{len(frames) / wall:.2f} frames/s (best {min(walls):.4f} s); "
-          f"card: {card}")
+    # 4) end to end through the decoder's entry point, one path at a time
+    launches = {}
+    for name, path_kernels in PATHS.items():
+        counts, _ = decode_path(torch, _build, MP2VDecoder, DecoderConfig,
+                                name, path_kernels)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
 
+    csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
     sources = {
-        "idct8x8": ("tiny_mp2v_dec_tpu_torch/csrc/idct.cu",
-                    "tiny_mp2v_dec_tpu/ops/idct.py:49"),
-        "mc_recon_luma": ("tiny_mp2v_dec_tpu_torch/csrc/mc_recon.cu",
+        "idct8x8": ("idct.cu", "tiny_mp2v_dec_tpu/ops/idct.py:49"),
+        "mc_recon_luma": ("mc_recon.cu",
                           "tiny_mp2v_dec_tpu/ops/mc_pallas.py:445"),
-        "mc_recon_uv": ("tiny_mp2v_dec_tpu_torch/csrc/mc_recon.cu",
+        "mc_recon_uv": ("mc_recon.cu",
                         "tiny_mp2v_dec_tpu/ops/mc_pallas.py:489"),
+        "mc_field_luma": ("mc_recon.cu",
+                          "tiny_mp2v_dec_tpu/ops/mc_pallas.py:353"),
+        "mc_field_uv": ("mc_recon.cu",
+                        "tiny_mp2v_dec_tpu/ops/mc_pallas.py:353"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": sources[name][0],
-                "replaces": sources[name][1], "launches": launches[name],
-                **r} for name, r in rec.items()]
+    kernels = [{"name": name, "route": "cuda",
+                "source": csrc + sources[name][0],
+                "replaces": sources[name][1],
+                "launches": launches.get(name, 0), **r}
+               for name, r in rec.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,13 @@
-"""PyTorch port, the decoder as a whole: small IPBPB streams against the
-JAX decoder (Pallas interpret mode) and the golden model, a mid-stream
-handoff of the reference pictures from JAX to the port, and what the
-slice refuses."""
+"""PyTorch port, the decoder as a whole: small IPBPB streams — frame and
+field motion, every chroma format — against the JAX decoder (Pallas
+interpret mode) and the golden model, a mid-stream handoff of the reference
+pictures from JAX to the port, and what the port refuses."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from m2v_encoder import encode_stream, random_picture  # noqa: E402
 from torch_parity import assert_frames_equal, ipb_stream  # noqa: E402
 from tiny_mp2v_dec_tpu import DecoderConfig as JaxConfig  # noqa: E402
 from tiny_mp2v_dec_tpu import MP2VDecoder as JaxDecoder  # noqa: E402
@@ -99,21 +100,86 @@ def test_handoff_mid_stream_from_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("gop_chunk", [0, 4])
-def test_field_motion_is_refused(gop_chunk):
-    data = ipb_stream(np.random.default_rng(5152), 3, 2, H.CHROMA_420,
-                      fpfd=False, allow_field_motion=True)
-    assert any(t.field_pred.any()
-               for t, _, _ in JaxDecoder().tokenize_stream(data))
+def _decode_all_three(data, gop_chunk):
+    """The port's decode, held against the golden model and the JAX
+    decoder on its Pallas path (interpret mode)."""
+    gold = decode_stream(data)
+    jax_frames = JaxDecoder(JaxConfig(
+        gop_chunk=gop_chunk, use_pallas=True,
+        pallas_interpret=True)).decode(data)
     dec = MP2VDecoder(DecoderConfig(gop_chunk=gop_chunk, device="cpu"))
-    with pytest.raises(NotImplementedError, match="field"):
-        dec.decode(data)
+    got = dec.decode(data)
+    assert_frames_equal(jax_frames, got)
+    assert_frames_equal(gold, got)
+    return dec, got
 
 
-def test_422_is_refused():
+def _field_pictures(data):
+    return sum(bool(t.field_pred.any())
+               for t, _, _ in JaxDecoder().tokenize_stream(data))
+
+
+FIELD = {"fpfd": False, "allow_field_motion": True}
+
+
+@pytest.mark.parametrize("gop_chunk", [0, 4])
+def test_field_motion_matches_jax_and_golden(gop_chunk):
+    """Field-based motion, 4:2:0 (the stream of the JAX package's
+    test_runtime_pallas_field_motion_stream)."""
+    data = ipb_stream(np.random.default_rng(5152), 3, 2, H.CHROMA_420,
+                      **FIELD)
+    assert _field_pictures(data) > 0
+    dec, _ = _decode_all_three(data, gop_chunk)
+    assert any(fs for _, fs, _ in dec._recons)
+
+
+@pytest.mark.parametrize("gop_chunk", [0, 4])
+def test_field_422_altscan_matches_jax_and_golden(gop_chunk):
+    """Field motion + 4:2:2 + alternate_scan (the JAX package's
+    test_runtime_pallas_field_422_altscan_stream)."""
+    data = ipb_stream(np.random.default_rng(5153), 2, 2, H.CHROMA_422,
+                      alternate_scan=1, **FIELD)
+    assert _field_pictures(data) > 0
+    _decode_all_three(data, gop_chunk)
+
+
+@pytest.mark.parametrize("gop_chunk", [0, 4])
+def test_field_444_matches_jax_and_golden(gop_chunk):
+    data = ipb_stream(np.random.default_rng(5157), 2, 2, H.CHROMA_444,
+                      **FIELD)
+    assert _field_pictures(data) > 0
+    _decode_all_three(data, gop_chunk)
+
+
+@pytest.mark.parametrize("gop_chunk", [0, 4])
+def test_422_frame_motion_matches_jax_and_golden(gop_chunk):
+    """4:2:2 with frame prediction only: the 16x8 chroma tiles of K3."""
     data = ipb_stream(np.random.default_rng(5156), 2, 2, H.CHROMA_422)
-    with pytest.raises(NotImplementedError, match="4:2:0"):
-        MP2VDecoder(DecoderConfig(gop_chunk=4, device="cpu")).decode(data)
+    assert _field_pictures(data) == 0
+    _decode_all_three(data, gop_chunk)
+
+
+def test_frame_and_field_chunks_share_references():
+    """Chunks alternate between frame-only and field content, so the frame
+    recon and the field recon of one geometry hand the reference pictures
+    to each other in both directions."""
+    rng = np.random.default_rng(5158)
+    pics = ((H.PCT_I, 0, False), (H.PCT_P, 2, False), (H.PCT_B, 1, True),
+            (H.PCT_P, 4, True), (H.PCT_P, 5, False), (H.PCT_P, 6, False),
+            (H.PCT_B, 3, True), (H.PCT_P, 7, True))
+    frames = []
+    for pct, tr, field in pics:
+        p = random_picture(rng, 2, 2, H.CHROMA_422, pct,
+                           **(FIELD if field else {}))
+        p.temporal_reference = tr
+        frames.append(p)
+    data = encode_stream(32, 32, H.CHROMA_422, frames)
+    toks = JaxDecoder().tokenize_stream(data)
+    chunks = [any(t.field_pred.any() for t, _, _ in toks[i:i + 2])
+              for i in range(0, 8, 2)]
+    assert chunks == [False, True, False, True]
+    dec, _ = _decode_all_three(data, 2)
+    assert {fs for _, fs, _ in dec._recons} == {False, True}
 
 
 @pytest.mark.parametrize("opts", [{"mesh": "rows"}, {"use_pallas": True},

@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version, and the 1080p fixture decoded through the kernels.
+PyTorch version (K3 and K4 at the chroma tile of every format), and both
+1080-line fixtures decoded through the kernels.
 
 These tests skip where torch finds no CUDA device.  The file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine that has
@@ -21,8 +22,7 @@ from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops.idct import (  # noqa: E402
     idct_blocks, idct_blocks_ref)
 
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                       "bench_1080p_420_16")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 def _require_cuda():
@@ -47,17 +47,30 @@ def test_idct_kernel_matches_plain():
     assert torch.equal(got, idct_blocks_ref(x))
 
 
-def _mc_case(dev, seed, H, W, tile, n_planes):
+def _mc_case(dev, seed, H, W, tile, n_planes, field=False):
+    """Random planes and per-MB vectors; ``tile`` is (rows, columns) or a
+    square side.  ``field``: field tuples of both directions appended, the
+    field bit on about half the MBs."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    mbh, mbw = H // tile, W // tile
+    th, tw = tile if isinstance(tile, tuple) else (tile, tile)
+    mbh, mbw = H // th, W // tw
     n = mbh * mbw
     mb_y, mb_x = np.divmod(np.arange(n), mbw)
-    pos = (t((mb_y * tile).astype(np.int32)), t((mb_x * tile).astype(np.int32)))
-    mv = t(rng.integers(-64, 64, (n, 2, 2)).astype(np.int16))
-    meta = [*mc_fused.mc_meta(*pos, mv[:, 0, 0], mv[:, 0, 1], H, W, tile, tile),
-            *mc_fused.mc_meta(*pos, mv[:, 1, 0], mv[:, 1, 1], H, W, tile, tile),
-            t(rng.permutation(np.arange(n) % 8).astype(np.int32))]
+    pos = (t((mb_y * th).astype(np.int32)), t((mb_x * tw).astype(np.int32)))
+    mv = t(rng.integers(-64, 64, (n, 2, 2, 2)).astype(np.int16))
+    mode = rng.permutation(np.arange(n) % 8)
+    if field:
+        mode = mode + 8 * (rng.random(n) < 0.5)
+    meta = [*mc_fused.mc_meta(*pos, mv[:, 0, 0, 0], mv[:, 0, 0, 1], H, W,
+                              th, tw),
+            *mc_fused.mc_meta(*pos, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W,
+                              th, tw),
+            t(mode.astype(np.int32))]
+    if field:
+        mvfs = t(rng.integers(0, 2, (n, 2, 2)).astype(np.uint8))
+        meta += [mc_fused.mc_field_meta(*pos, mv[:, :, s], mvfs[:, :, s],
+                                        H, W, th, tw) for s in range(2)]
     plane = lambda: t(rng.integers(0, 256, (H, W)).astype(np.uint8))  # noqa
     res = [t(rng.integers(-300, 300, (H, W)).astype(np.int16))
            for _ in range(n_planes)]
@@ -90,11 +103,65 @@ def test_mc_uv_kernel_matches_plain(bidir):
 
 
 @pytest.mark.cuda
-def test_decode_fixture_through_kernels():
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("H,W,tile", [(1088, 960, (16, 8)),
+                                      (1088, 1920, (16, 16))])
+def test_mc_uv_kernel_tiles_match_plain(H, W, tile, bidir):
+    """K3 at the 4:2:2 and 4:4:4 chroma tiles."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 15, H, W, tile, 2)
+    args = (tuple(r0), tuple(r1), tuple(res), *meta)
+    got = mc_fused.fused_mc_recon_uv(*args, h=tile[0], w=tile[1],
+                                     bidir=bidir)
+    want = mc_fused.fused_mc_recon_uv_ref(*args, h=tile[0], w=tile[1],
+                                          bidir=bidir)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+def test_mc_field_luma_kernel_matches_plain(bidir):
+    """K4, luma: the field kernel against the plain field-view version."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 16, 1088, 1920, 16, 1, field=True)
+    before = _build.LAUNCHES["mc_field_luma"]
+    got = mc_fused.fused_mc_recon(r0[0], r1[0], res[0], *meta, bidir=bidir)
+    want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
+                                       h=16, w=16, bidir=bidir)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_field_luma"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("H,W,tile", [(544, 960, (8, 8)),
+                                      (1088, 960, (16, 8)),
+                                      (1088, 1920, (16, 16))])
+def test_mc_field_uv_kernel_matches_plain(H, W, tile, bidir):
+    """K4, chroma, at the chroma tile of every format."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 17, H, W, tile, 2, field=True)
+    args = (tuple(r0), tuple(r1), tuple(res), *meta)
+    got = mc_fused.fused_mc_recon_uv(*args, h=tile[0], w=tile[1],
+                                     bidir=bidir)
+    want = mc_fused.fused_mc_recon_uv_ref(*args, h=tile[0], w=tile[1],
+                                          bidir=bidir)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernels", [
+    ("bench_1080p_420_16", ("idct8x8", "mc_recon_luma", "mc_recon_uv")),
+    ("interlaced_1080_422_16", ("idct8x8", "mc_field_luma", "mc_field_uv")),
+])
+def test_decode_fixture_through_kernels(name, kernels):
     _require_cuda()
-    with open(FIXTURE + ".m2v", "rb") as f:
+    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
         data = f.read()
-    with open(FIXTURE + ".json") as f:
+    with open(os.path.join(DATA, name + ".json")) as f:
         want = json.load(f)
     dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
                                     pictures_pool_size=0, device="cuda"))
@@ -104,5 +171,5 @@ def test_decode_fixture_through_kernels():
     for f in frames:
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
-    for name in ("idct8x8", "mc_recon_luma", "mc_recon_uv"):
-        assert _build.LAUNCHES[name] > before.get(name, 0), name
+    for k in kernels:
+        assert _build.LAUNCHES[k] > before.get(k, 0), k

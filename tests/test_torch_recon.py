@@ -1,6 +1,7 @@
 """PyTorch port, GOP-chunk transport and reconstruction against the JAX
 package's GopRecon: the prepared blob byte for byte, the decoded blob, and
-a 4-picture chunk's output (Pallas kernels in interpret mode)."""
+a 4-picture chunk's output (Pallas kernels in interpret mode) — in the
+frame-prediction form and, for every chroma format, the field form."""
 import numpy as np
 import pytest
 
@@ -14,18 +15,22 @@ from tiny_mp2v_dec_tpu import MP2VDecoder as JaxDecoder  # noqa: E402
 from tiny_mp2v_dec_tpu import headers as H  # noqa: E402
 from tiny_mp2v_dec_tpu.ops.recon import GopRecon as JaxGopRecon  # noqa: E402
 from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder  # noqa: E402
+from tiny_mp2v_dec_tpu_torch import PictureGeometry  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops.recon import GopRecon  # noqa: E402
 
 IPBPB_B = ((H.PCT_I, 0), (H.PCT_P, 2), (H.PCT_B, 1), (H.PCT_P, 4),
            (H.PCT_B, 3), (H.PCT_P, 6), (H.PCT_B, 5))
 
 
-def _tokens(seed, mb_w=3, mb_h=2, **opts):
+FIELD = {"fpfd": False, "allow_field_motion": True}
+
+
+def _tokens(seed, mb_w=3, mb_h=2, cf=H.CHROMA_420, **opts):
     """One random stream tokenized by both packages' native tokenizers.
     One tokenizer thread each: with several, slices claim coefficient rows
     in scheduling order, and the blob's row order with them."""
-    data = ipb_stream(np.random.default_rng(seed), mb_w, mb_h,
-                      H.CHROMA_420, IPBPB_B, **opts)
+    data = ipb_stream(np.random.default_rng(seed), mb_w, mb_h, cf, IPBPB_B,
+                      **opts)
     jt = JaxDecoder(JaxConfig(num_threads=1)).tokenize_stream(data)
     tt = MP2VDecoder(DecoderConfig(num_threads=1,
                                    device="cpu")).tokenize_stream(data)
@@ -33,11 +38,11 @@ def _tokens(seed, mb_w=3, mb_h=2, **opts):
     return jt, tt, pcts
 
 
-def _recons(jt, tt, chunk, scat_u16=True, pallas=False):
-    jr = JaxGopRecon(jt[0][1], chunk, field_support=False,
+def _recons(jt, tt, chunk, scat_u16=True, pallas=False, field=False):
+    jr = JaxGopRecon(jt[0][1], chunk, field_support=field,
                      use_pallas_idct=pallas, use_pallas_mc=pallas,
                      pallas_interpret=pallas)
-    tr = GopRecon(tt[0][1], chunk, "cpu")
+    tr = GopRecon(tt[0][1], chunk, "cpu", field_support=field)
     # the int32 block-index form is taken by pictures wider than ~2.7K;
     # forcing it here covers that layout at a small size
     jr._scat_u16 = tr._scat_u16 = scat_u16
@@ -90,3 +95,78 @@ def test_chunk_output_matches_pallas(scat_u16):
     np.testing.assert_array_equal(tpacks.numpy(), np.asarray(jpacks)[:4])
     for g, w in zip((*t0, *t1), (*j0, *j1)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+CHROMA = [H.CHROMA_420, H.CHROMA_422, H.CHROMA_444]
+
+
+@pytest.mark.parametrize("scat_u16", [True, False])
+@pytest.mark.parametrize("cf", CHROMA)
+def test_field_blob_byte_identical(cf, scat_u16):
+    """The 9-column form (all 8 MVs + field selects in the flags) moves
+    every later section; the blob is JAX's byte for byte."""
+    jt, tt, pcts = _tokens(110 + cf, cf=cf, **FIELD)
+    assert any(t.field_pred.any() for t, _, _ in tt[:4])
+    jr, tr = _recons(jt, tt, 4, scat_u16, field=True)
+    (jkey, jblob) = jr.prepare([x[0] for x in jt[:4]], pcts[:4])
+    (tkey, tblob, n) = tr.prepare([x[0] for x in tt[:4]], pcts[:4])
+    assert n == 4 and tkey == jkey[:2]
+    assert len(tblob) == tr._layout(*tkey)[-1]
+    assert jblob.tobytes() == tblob.tobytes()
+
+
+@pytest.mark.parametrize("scat_u16", [True, False])
+@pytest.mark.parametrize("cf", CHROMA)
+def test_field_decode_blob_equal(cf, scat_u16):
+    jt, tt, pcts = _tokens(120 + cf, cf=cf, **FIELD)
+    jr, tr = _recons(jt, tt, 4, scat_u16, field=True)
+    (cap_pairs, cap_k, _), blob = jr.prepare([x[0] for x in jt[1:4]],
+                                             pcts[1:4])
+    want = jr._decode_blob(jnp.asarray(blob), cap_pairs=cap_pairs,
+                           cap_k=cap_k)
+    got = tr._decode_blob(torch.from_numpy(blob.copy()),
+                          cap_pairs=cap_pairs, cap_k=cap_k)
+    assert got[1].shape[-1] == 9
+    for name, g, w in zip(("dense", "meta", "flags"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+
+
+def test_frame_recon_refuses_field_mbs():
+    """A frame-prediction recon's 5 metadata columns would drop the second
+    unit's vectors: it refuses a chunk with field-predicted MBs."""
+    _, tt, pcts = _tokens(130, **FIELD)
+    assert any(t.field_pred.any() for t, _, _ in tt[:4])
+    with pytest.raises(ValueError, match="field_support"):
+        GopRecon(tt[0][1], 4, "cpu").prepare([x[0] for x in tt[:4]],
+                                             pcts[:4])
+
+
+@pytest.mark.parametrize("cf", CHROMA)
+def test_field_chunk_output_matches_pallas(cf):
+    """A 4-picture I P B P chunk with field motion and field DCT from zero
+    references, field form (K4 in interpret mode on the JAX side): packed
+    output and the carried reference pictures are equal.  4:4:4 takes the
+    int32 block-index form, as it does at 1088 lines."""
+    jt, tt, pcts = _tokens(140 + cf, cf=cf, **FIELD)
+    assert any(t.field_pred.any() for t, _, _ in tt[:4])
+    assert any(t.dct_type.any() for t, _, _ in tt[:4])
+    jr, tr = _recons(jt, tt, 4, cf != H.CHROMA_444, pallas=True, field=True)
+    j0, j1, jpacks = jr.dispatch(jr.prepare([x[0] for x in jt[:4]],
+                                            pcts[:4]), bidir=True)
+    t0, t1, tpacks = tr.dispatch(tr.prepare([x[0] for x in tt[:4]],
+                                            pcts[:4]), bidir=True)
+    np.testing.assert_array_equal(tpacks.numpy(), np.asarray(jpacks)[:4])
+    for g, w in zip((*t0, *t1), (*j0, *j1)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("cf,u16", [(H.CHROMA_420, True),
+                                    (H.CHROMA_422, True),
+                                    (H.CHROMA_444, False)])
+def test_block_index_form_at_1088_lines(cf, u16):
+    """At 1920x1088 the dense grid of 4:4:4 (97,920 blocks) no longer fits
+    the uint16 index: its blob takes the int32 form, which the tests above
+    force at a small size."""
+    g = PictureGeometry(width=1920, height=1088, chroma_format=cf)
+    assert GopRecon(g, 16, "cpu", field_support=True)._scat_u16 is u16

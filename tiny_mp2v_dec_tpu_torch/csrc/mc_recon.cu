@@ -1,10 +1,14 @@
-// K2 / K3: fused frame motion compensation + residual add + saturation.
+// K2 / K3 / K4: fused motion compensation + residual add + saturation.
 //
-// Replaces (frame prediction, bidir and forward-only forms):
+// Replaces (bidir and forward-only forms):
 //   K2  tiny_mp2v_dec_tpu/ops/mc_pallas.py fused_mc_recon_mxu
 //       (_make_kernel_mxu + _gather_pred_mxu; pallas_call at :480), luma;
-//   K3  tiny_mp2v_dec_tpu/ops/mc_pallas.py fused_mc_recon_uv_mxu, pair=True
-//       (_gather_pred_pair_mxu; pallas_call at :523), both chroma planes.
+//   K3  tiny_mp2v_dec_tpu/ops/mc_pallas.py fused_mc_recon_uv_mxu
+//       (_gather_pred_pair_mxu; pallas_call at :523), both chroma planes,
+//       at the chroma tile of every format: 8x8 (4:2:0), 16x8 (4:2:2) and
+//       16x16 (4:4:4);
+//   K4  the field form of both, _field_pred_mxu (mc_pallas.py:353), which
+//       the JAX kernels select per MB by mode bit 8 (:397-412).
 //
 // Per macroblock: the forward and backward (h, w) half-pel predictions at
 // the clamped window starts (sy, sx) that mc_meta computed, each selecting
@@ -12,6 +16,18 @@
 // 2-bit phase; mode bit 1 = forward, 2 = backward (read only by the bidir
 // form), both = (pf+pb+1)>>1; then + int16 residual, clip to [0, 255],
 // and 0 for an MB whose mode bit 4 (coded) is clear.  Stored as uint8.
+//
+// Field prediction (the FIELD form, MBs with mode bit 8): output row ty of
+// the tile belongs to unit r = ty & 1, whose taps are frame rows ty + C_r
+// and ty + C_r + 2 (the next row of the same field) at columns sx_r + tx
+// and sx_r + tx + 1, with phase ph_r — (C_r, sx_r, ph_r) from
+// mc_field_meta, C_r = 2*syf_r + sel_r - r.  Frame row ty + C_r is field
+// row syf_r + (ty >> 1) of field sel_r, so this reads exactly what the
+// JAX package's padded field views hold, and its zero row is the frame's
+// rows >= Hr.  The TPU kernel evaluated both units for every row and
+// selected by parity afterwards (a vector trick); here each thread
+// computes only its own unit, and so never reads row C_1 = -1.  MBs
+// without bit 8 take the frame prediction unchanged.
 //
 // What bounds it on an H100: memory and per-MB latency, not arithmetic.
 // A 1080p luma plane is 2 MB out, 4 MB of residual in and up to 2 x 2 MB of
@@ -39,14 +55,15 @@ struct Planes {
   uint8_t* out[2];
 };
 
-struct MBMeta {
-  const int32_t* syf;
-  const int32_t* sxf;
-  const int32_t* phf;
-  const int32_t* syb;
-  const int32_t* sxb;
-  const int32_t* phb;
-  const int32_t* mode;
+// One direction's per-MB vectors: the frame window (sy, sx, ph) and the
+// field units' (C, sx, ph) for r = 0, 1.
+struct DirMeta {
+  const int32_t* sy;
+  const int32_t* sx;
+  const int32_t* ph;
+  const int32_t* fc[2];
+  const int32_t* fx[2];
+  const int32_t* fp[2];
 };
 
 __device__ __forceinline__ int tap(const uint8_t* __restrict__ ref, int Hr,
@@ -54,10 +71,12 @@ __device__ __forceinline__ int tap(const uint8_t* __restrict__ ref, int Hr,
   return (y < Hr && x < Wr) ? (int)ref[(long long)y * Wr + x] : 0;
 }
 
-// One pixel of a unidirectional half-pel prediction; (y, x) >= 0 because
-// window starts arrive clamped to [0, Hr-h] x [0, Wr-w].
+// One pixel of a unidirectional half-pel prediction whose vertical taps are
+// `vs` rows apart (1: frame, 2: field); (y, x) >= 0 because window starts
+// arrive clamped.
 __device__ __forceinline__ int halfpel(const uint8_t* __restrict__ ref,
-                                       int Hr, int Wr, int y, int x, int ph) {
+                                       int Hr, int Wr, int y, int x, int ph,
+                                       int vs) {
   const int a = tap(ref, Hr, Wr, y, x);
   switch (ph & 3) {
     case 0:
@@ -65,11 +84,11 @@ __device__ __forceinline__ int halfpel(const uint8_t* __restrict__ ref,
     case 1:
       return (a + tap(ref, Hr, Wr, y, x + 1) + 1) >> 1;
     case 2:
-      return (a + tap(ref, Hr, Wr, y + 1, x) + 1) >> 1;
+      return (a + tap(ref, Hr, Wr, y + vs, x) + 1) >> 1;
     default: {
       const int b = tap(ref, Hr, Wr, y, x + 1);
-      const int c = tap(ref, Hr, Wr, y + 1, x);
-      const int d = tap(ref, Hr, Wr, y + 1, x + 1);
+      const int c = tap(ref, Hr, Wr, y + vs, x);
+      const int d = tap(ref, Hr, Wr, y + vs, x + 1);
       const int ab = (a + b + 1) >> 1;
       const int cd = (c + d + 1) >> 1;
       return (ab + cd + 1) >> 1;
@@ -77,32 +96,72 @@ __device__ __forceinline__ int halfpel(const uint8_t* __restrict__ ref,
   }
 }
 
+// Pixel (ty, tx) of MB i's prediction in one direction.
+template <bool FIELD>
+__device__ __forceinline__ int predict(const uint8_t* __restrict__ ref,
+                                       const DirMeta& d, int i, int mode,
+                                       int ty, int tx, int Hr, int Wr) {
+  if (FIELD && (mode & 8)) {
+    // selects, not a runtime index into the parameter arrays, which would
+    // copy them to local memory
+    const bool r = ty & 1;
+    const int32_t* fc = r ? d.fc[1] : d.fc[0];
+    const int32_t* fx = r ? d.fx[1] : d.fx[0];
+    const int32_t* fp = r ? d.fp[1] : d.fp[0];
+    return halfpel(ref, Hr, Wr, fc[i] + ty, fx[i] + tx, fp[i], 2);
+  }
+  return halfpel(ref, Hr, Wr, d.sy[i] + ty, d.sx[i] + tx, d.ph[i], 1);
+}
+
 // blockDim = (TW, TH, NP); blockIdx.x = macroblock (row-major).
-template <int TH, int TW, int NP, bool BIDIR>
-__global__ void mc_recon_kernel(Planes p, MBMeta m, int mbw, int Hr,
-                                int Wr) {
+template <int TH, int TW, bool BIDIR, bool FIELD>
+__global__ void mc_recon_kernel(Planes p, DirMeta fm, DirMeta bm,
+                                const int32_t* __restrict__ modes, int mbw,
+                                int Hr, int Wr) {
   const int i = blockIdx.x;
   const int tx = threadIdx.x, ty = threadIdx.y, pl = threadIdx.z;
   const int W = mbw * TW;
   const long long o =
       (long long)((i / mbw) * TH + ty) * W + (i % mbw) * TW + tx;
-  const int mode = m.mode[i];
+  const int mode = modes[i];
   int val = 0;
   if (mode & 4) {
     const bool f = (mode & 1) != 0;
     const bool b = BIDIR && (mode & 2) != 0;
     int pf = 0, pb = 0;
-    if (f) pf = halfpel(p.ref0[pl], Hr, Wr, m.syf[i] + ty, m.sxf[i] + tx,
-                        m.phf[i]);
-    if (b) pb = halfpel(p.ref1[pl], Hr, Wr, m.syb[i] + ty, m.sxb[i] + tx,
-                        m.phb[i]);
+    if (f)
+      pf = predict<FIELD>(pl ? p.ref0[1] : p.ref0[0], fm, i, mode, ty, tx,
+                          Hr, Wr);
+    if (b)
+      pb = predict<FIELD>(pl ? p.ref1[1] : p.ref1[0], bm, i, mode, ty, tx,
+                          Hr, Wr);
     const int pred = (f && b) ? (pf + pb + 1) >> 1 : (f ? pf : pb);
-    val = min(max(pred + (int)p.res[pl][o], 0), 255);
+    val = min(max(pred + (int)(pl ? p.res[1] : p.res[0])[o], 0), 255);
   }
-  p.out[pl][o] = (uint8_t)val;
+  (pl ? p.out[1] : p.out[0])[o] = (uint8_t)val;
 }
 
-template <int TH, int TW, int NP>
+// Pointer order (27 pointers, MC_PTRS in ops/_build.py): ref0[2], ref1[2],
+// res[2], out[2], then syf, sxf, phf, syb, sxb, phb, mode, then the field
+// tuples (C0, sx0, ph0, C1, sx1, ph1) forward and backward.  The luma forms
+// read only index 0 of each plane pair; the frame forms leave the field
+// tuples unread (null).
+
+DirMeta dir_meta(const void* const* ptrs, int s) {
+  const int32_t* const* q = (const int32_t* const*)ptrs;
+  DirMeta d;
+  d.sy = q[8 + 3 * s];
+  d.sx = q[9 + 3 * s];
+  d.ph = q[10 + 3 * s];
+  for (int r = 0; r < 2; ++r) {
+    d.fc[r] = q[15 + 6 * s + 3 * r];
+    d.fx[r] = q[16 + 6 * s + 3 * r];
+    d.fp[r] = q[17 + 6 * s + 3 * r];
+  }
+  return d;
+}
+
+template <int TH, int TW, int NP, bool FIELD>
 int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
            int bidir, void* stream) {
   Planes p;
@@ -112,43 +171,57 @@ int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
     p.res[k] = (const int16_t*)ptrs[4 + k];
     p.out[k] = (uint8_t*)ptrs[6 + k];
   }
-  MBMeta m{(const int32_t*)ptrs[8],  (const int32_t*)ptrs[9],
-           (const int32_t*)ptrs[10], (const int32_t*)ptrs[11],
-           (const int32_t*)ptrs[12], (const int32_t*)ptrs[13],
-           (const int32_t*)ptrs[14]};
+  const DirMeta fm = dir_meta(ptrs, 0), bm = dir_meta(ptrs, 1);
+  const int32_t* modes = (const int32_t*)ptrs[14];
   if (n_mb > 0) {
     const dim3 block(TW, TH, NP);
     cudaStream_t s = (cudaStream_t)stream;
     if (bidir)
-      mc_recon_kernel<TH, TW, NP, true><<<n_mb, block, 0, s>>>(p, m, mbw, Hr,
-                                                              Wr);
+      mc_recon_kernel<TH, TW, true, FIELD>
+          <<<n_mb, block, 0, s>>>(p, fm, bm, modes, mbw, Hr, Wr);
     else
-      mc_recon_kernel<TH, TW, NP, false><<<n_mb, block, 0, s>>>(p, m, mbw,
-                                                               Hr, Wr);
+      mc_recon_kernel<TH, TW, false, FIELD>
+          <<<n_mb, block, 0, s>>>(p, fm, bm, modes, mbw, Hr, Wr);
   }
   return (int)cudaGetLastError();
 }
 
+// The luma forms take 16x16 tiles; the chroma forms the chroma tile of
+// each format.  Any other tile is refused before a launch.
+template <int NP, bool FIELD>
+int launch_tile(const void* const* ptrs, int th, int tw, int n_mb, int mbw,
+                int Hr, int Wr, int bidir, void* stream) {
+  if (th == 16 && tw == 16)
+    return launch<16, 16, NP, FIELD>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+  if constexpr (NP == 2) {
+    if (th == 8 && tw == 8)
+      return launch<8, 8, NP, FIELD>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+    if (th == 16 && tw == 8)
+      return launch<16, 8, NP, FIELD>(ptrs, n_mb, mbw, Hr, Wr, bidir,
+                                      stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Pointer order (15): ref0[2], ref1[2], res[2], out[2], syf, sxf, phf, syb,
-// sxb, phb, mode.  The luma form reads only index 0 of each plane pair.
-#define MP2V_MC_ARGS                                                        \
-  const void *r0a, const void *r0b, const void *r1a, const void *r1b,       \
-      const void *resa, const void *resb, void *outa, void *outb,           \
-      const void *syf, const void *sxf, const void *phf, const void *syb,   \
-      const void *sxb, const void *phb, const void *mode, int n_mb, int mbw, \
-      int Hr, int Wr, int bidir, void *stream
-#define MP2V_MC_PTRS                                                     \
-  const void* ptrs[15] = {r0a, r0b, r1a, r1b, resa, resb, outa, outb, syf, \
-                          sxf, phf, syb, sxb, phb, mode}
+#define MP2V_MC_ARGS                                                      \
+  const void *const *ptrs, int th, int tw, int n_mb, int mbw, int Hr,     \
+      int Wr, int bidir, void *stream
+#define MP2V_MC_FWD ptrs, th, tw, n_mb, mbw, Hr, Wr, bidir, stream
 
 extern "C" int mp2v_mc_recon_luma(MP2V_MC_ARGS) {
-  MP2V_MC_PTRS;
-  return launch<16, 16, 1>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+  return launch_tile<1, false>(MP2V_MC_FWD);
 }
 
 extern "C" int mp2v_mc_recon_uv(MP2V_MC_ARGS) {
-  MP2V_MC_PTRS;
-  return launch<8, 8, 2>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+  return launch_tile<2, false>(MP2V_MC_FWD);
+}
+
+extern "C" int mp2v_mc_field_luma(MP2V_MC_ARGS) {
+  return launch_tile<1, true>(MP2V_MC_FWD);
+}
+
+extern "C" int mp2v_mc_field_uv(MP2V_MC_ARGS) {
+  return launch_tile<2, true>(MP2V_MC_FWD);
 }

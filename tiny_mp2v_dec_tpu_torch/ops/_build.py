@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/*.cu``.
 
-``nvcc`` compiles every source of ``csrc/`` for ``sm_90a`` (Hopper) into
-one shared library with a plain C interface, under the repository's
+``nvcc`` compiles every source of ``csrc/`` for ``sm_90a`` (Hopper), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, under the repository's
 ``build/kernels/`` directory, at first use; ``ctypes`` loads it.  Every C
 entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -28,19 +29,26 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB = os.path.join(BUILD_DIR, "libmp2v_kernels.so")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P = C.c_void_p
 _I = C.c_int
+# length of the pointer array the MC entry points take (csrc/mc_recon.cu):
+# ref0[2], ref1[2], res[2], out[2], sy/sx/ph fwd, sy/sx/ph bwd, mode, then
+# the field tuples (C0, sx0, ph0, C1, sx1, ph1) fwd and bwd
+MC_PTRS = 27
+# the MC entry points' arguments: the pointer array, tile rows, tile
+# columns, n_mb, mb_width, Hr, Wr, bidir, stream
+_MC = [C.POINTER(_P)] + [_I] * 7 + [_P]
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "mp2v_idct8x8": [_P, _P, _I, _P],
-    # ref0[2], ref1[2], res[2], out[2], sy/sx/ph fwd, sy/sx/ph bwd, mode,
-    # n_mb, mb_width, Hr, Wr, bidir, stream
-    "mp2v_mc_recon_luma": [_P] * 15 + [_I] * 5 + [_P],
-    "mp2v_mc_recon_uv": [_P] * 15 + [_I] * 5 + [_P],
+    "mp2v_mc_recon_luma": _MC,
+    "mp2v_mc_recon_uv": _MC,
+    "mp2v_mc_field_luma": _MC,
+    "mp2v_mc_field_uv": _MC,
 }
 
 _lib = None
@@ -67,9 +75,24 @@ def build(force: bool = False) -> str:
             and os.path.getmtime(LIB) > max(map(os.path.getmtime, srcs))):
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs], check=True)
-    os.replace(tmp, LIB)
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in srcs]
+    tmp = f"{LIB}.{tag}"
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+                 for src, obj in zip(srcs, objs)]
+        failed = [src for src, p in zip(srcs, procs) if p.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                       check=True)
+        os.replace(tmp, LIB)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     return LIB
 
 

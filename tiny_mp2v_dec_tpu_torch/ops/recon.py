@@ -1,7 +1,8 @@
 """Device reconstruction of GOP chunks: transport, IDCT, fused MC.
 
-Counterpart of ``tiny_mp2v_dec_tpu/ops/recon.py`` for frame-prediction
-4:2:0 content.  :class:`GopRecon` decodes a chunk of pictures:
+Counterpart of ``tiny_mp2v_dec_tpu/ops/recon.py`` for frame pictures in
+every chroma format (4:2:0, 4:2:2, 4:4:4), with frame- or field-based
+motion.  :class:`GopRecon` decodes a chunk of pictures:
 
 1. :meth:`GopRecon.prepare` (host, numpy) packs the chunk's nonzero
    coefficients as (column, value) pairs, per-row nonzero counts, block
@@ -13,8 +14,9 @@ Counterpart of ``tiny_mp2v_dec_tpu/ops/recon.py`` for frame-prediction
    the residual blocks land in each picture's dense block grid;
 3. :meth:`GopRecon._gop` loops over the pictures in Python: per picture
    the residual is laid out as planes and kernels K2 (luma) and K3 (U+V)
-   predict, add and saturate; the reference list is updated on the host,
-   where picture types are known.
+   predict, add and saturate — or, in a chunk with field-predicted MBs
+   (``field_support=True``), their field form K4; the reference list is
+   updated on the host, where picture types are known.
 
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
@@ -28,7 +30,8 @@ from ..headers import CHROMA_420
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from .idct import idct_blocks
-from .mc_fused import fused_mc_recon, fused_mc_recon_uv, mc_meta
+from .mc_fused import (fused_mc_recon, fused_mc_recon_uv, mc_field_meta,
+                       mc_meta)
 
 
 def _tiles_from_blocks(blocks, rows, cols, interleave_mask):
@@ -51,7 +54,8 @@ def _plane_from_tiles(tiles, mb_h, mb_w, th, tw):
 
 
 def _scale_mv(mv, cf):
-    """Vectorized chroma MV derivation; mv: (..., 2) [x, y] int16."""
+    """Vectorized chroma MV derivation, frame and field vectors alike;
+    mv: (..., 2) [x, y] int16."""
     mvx, mvy = mv[..., 0], mv[..., 1]
     if cf < 3:
         mvx = mvx >> 1
@@ -60,32 +64,52 @@ def _scale_mv(mv, cf):
     return torch.stack([mvx, mvy], dim=-1)
 
 
-# Compact chunk-path metadata, frame-prediction form (the JAX package's
-# field_support=False layout): one flags column (bit0 dct_type, 1 fwd,
-# 2 bwd, 3 field_pred, 4 coded) + the first unit's MVs [dir][x, y].
-META2_COLS = 5
+# Compact chunk-path metadata, as in the JAX package: one flags column
+# (bit0 dct_type, 1 fwd, 2 bwd, 3 field_pred, 4 coded, 5..8 mvfs[r][s] at
+# bit 5+2r+s) + MV columns.  Frame-prediction chunks
+# (field_support=False) carry the first unit's MVs [dir][x, y] (5
+# columns); field-capable chunks carry all 8 [unit][dir][x, y] + mvfs (9).
+def meta2_cols(field_support: bool) -> int:
+    return 9 if field_support else 5
 
 
-def pack_meta2(tokens: PictureTokens,
+def pack_meta2(tokens: PictureTokens, field_support: bool,
                out: np.ndarray | None = None) -> np.ndarray:
     n = tokens.geom.n_mb
-    meta = out if out is not None else np.zeros((n, META2_COLS), np.int16)
-    meta[:, 0] = (tokens.dct_type.astype(np.int16)
-                  | (tokens.fwd.astype(np.int16) << 1)
-                  | (tokens.bwd.astype(np.int16) << 2)
-                  | (tokens.field_pred.astype(np.int16) << 3)
-                  | (tokens.coded.astype(np.int16) << 4))
-    meta[:, 1:5] = tokens.mv[:, 0].reshape(n, 4)
+    meta = (out if out is not None
+            else np.zeros((n, meta2_cols(field_support)), np.int16))
+    flags = (tokens.dct_type.astype(np.int16)
+             | (tokens.fwd.astype(np.int16) << 1)
+             | (tokens.bwd.astype(np.int16) << 2)
+             | (tokens.field_pred.astype(np.int16) << 3)
+             | (tokens.coded.astype(np.int16) << 4))
+    if field_support:
+        mvfs = tokens.mvfs.reshape(n, 4).astype(np.int16)
+        for b in range(4):
+            flags |= mvfs[:, b] << (5 + b)
+        meta[:, 1:9] = tokens.mv.reshape(n, 8)
+    else:
+        meta[:, 1:5] = tokens.mv[:, 0].reshape(n, 4)
+    meta[:, 0] = flags
     return meta
 
 
-def _unpack_meta2(meta):
-    """(n, 5) metadata -> (dct_type, fwd, bwd, coded) bool vectors and the
-    (n, 2:dir, 2:xy) int16 MVs."""
+def _unpack_meta2(meta, field_support: bool):
+    """(n, cols) metadata -> (dct_type, fwd, bwd, field_pred, coded) bool
+    vectors, the (n, units, 2:dir, 2:xy) int16 MVs (one unit without field
+    support, two with) and the (n, 2:unit, 2:dir) motion_vertical_field
+    selects (``None`` without field support)."""
     n = meta.shape[0]
     flags = meta[:, 0]
+    if field_support:
+        mvfs = torch.stack([(flags >> (5 + b)) & 1 for b in range(4)],
+                           dim=-1).reshape(n, 2, 2)
+        mv = meta[:, 1:9].reshape(n, 2, 2, 2)
+    else:
+        mvfs = None
+        mv = meta[:, 1:5].reshape(n, 1, 2, 2)
     return ((flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
-            (flags & 16) != 0, meta[:, 1:5].reshape(n, 2, 2))
+            (flags & 8) != 0, (flags & 16) != 0, mv, mvfs)
 
 
 def _ladder(n: int, lo: int = 2048) -> int:
@@ -101,21 +125,18 @@ def _ladder(n: int, lo: int = 2048) -> int:
     return b
 
 
-def _require_420(geom: PictureGeometry) -> None:
-    if geom.chroma_format != CHROMA_420:
-        raise NotImplementedError(
-            f"chroma_format {geom.chroma_format}: the port reconstructs "
-            f"4:2:0 only so far")
-
-
 class DeviceRecon:
-    """Per-geometry reconstruction of one picture from its residual blocks
-    (frame prediction, 4:2:0)."""
+    """Per-geometry reconstruction of one picture from its residual blocks.
 
-    def __init__(self, geom: PictureGeometry, device):
-        _require_420(geom)
+    ``field_support=False`` takes the frame-prediction kernels K2/K3 and
+    ignores field motion; ``True`` takes their field form K4, which
+    predicts each MB frame- or field-based by its field_pred flag."""
+
+    def __init__(self, geom: PictureGeometry, device,
+                 field_support: bool = False):
         self.geom = geom
         self.device = torch.device(device)
+        self.field_support = field_support
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mb_y, mb_x = np.divmod(np.arange(geom.n_mb), geom.mb_width)
 
@@ -128,49 +149,72 @@ class DeviceRecon:
         }
         self._zero_refs = None
 
-    def _recon_from_residual(self, residual, dct_type, fwd, bwd, coded, mv,
+    def _recon_from_residual(self, residual, dct_type, fwd, bwd,
+                             field_pred, coded, mv, mvfs,
                              r0y, r0u, r0v, r1y, r1u, r1v,
                              bidir: bool = True):
-        """residual: (n_mb, 6, 8, 8) int16 blocks; mv: (n_mb, 2:dir, 2:xy)
-        int16; returns the reconstructed (y, u, v) planes."""
+        """residual: (n_mb, blocks_per_mb, 8, 8) int16 blocks; mv:
+        (n_mb, units, 2:dir, 2:xy) int16 with two units (and mvfs
+        (n_mb, 2:unit, 2:dir)) under field support, else one; returns the
+        reconstructed (y, u, v) planes."""
+        cf = self.geom.chroma_format
+        xs, ys, n_cb = CHROMA_INFO[cf]
+        c_rows, c_cols = (16 >> ys) // 8, (16 >> xs) // 8
+        # field DCT interleaves chroma rows too where a chroma block
+        # column spans the MB's 16 rows (4:2:2, 4:4:4)
+        inter_c = dct_type if cf != CHROMA_420 else None
         res = {
             0: _tiles_from_blocks(residual[:, :4], 2, 2, dct_type),
-            1: _tiles_from_blocks(residual[:, 4:5], 1, 1, None),
-            2: _tiles_from_blocks(residual[:, 5:], 1, 1, None),
+            1: _tiles_from_blocks(residual[:, 4:4 + n_cb], c_rows, c_cols,
+                                  inter_c),
+            2: _tiles_from_blocks(residual[:, 4 + n_cb:], c_rows, c_cols,
+                                  inter_c),
         }
         refs = {0: (r0y, r1y), 1: (r0u, r1u), 2: (r0v, r1v)}
-        return self._planes(res, refs, fwd, bwd, coded, mv, bidir)
+        return self._planes(res, refs, fwd, bwd, field_pred, coded, mv,
+                            mvfs, bidir)
 
-    def _planes(self, res, refs, fwd, bwd, coded, mv, bidir: bool = True):
+    def _planes(self, res, refs, fwd, bwd, field_pred, coded, mv, mvfs,
+                bidir: bool = True):
         """Fused-kernel reconstruction: per component, the int16 residual in
-        plane layout, then one K2 launch for luma and one K3 launch for U
-        and V together (MC, bidir average, residual add, saturation and
-        uncoded masking)."""
+        plane layout, then one launch for luma and one for U and V together
+        (MC, bidir average, residual add, saturation and uncoded masking):
+        K2 and K3, or K4 under field support."""
         geom = self.geom
+        xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mbh, mbw = geom.mb_height, geom.mb_width
+        fs = self.field_support
         mode = (fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
                 + 4 * coded.to(torch.int32))
+        if fs:
+            mode = mode + 8 * field_pred.to(torch.int32)
+
+        def meta(pos, mvs, H, W, h, w):
+            """Frame vectors of both directions (unit 0), then, under field
+            support, the field tuples of both directions."""
+            py, px = pos
+            out = [*mc_meta(py, px, mvs[:, 0, 0, 0], mvs[:, 0, 0, 1],
+                            H, W, h, w),
+                   *mc_meta(py, px, mvs[:, 0, 1, 0], mvs[:, 0, 1, 1],
+                            H, W, h, w), mode]
+            if fs:
+                out += [mc_field_meta(py, px, mvs[:, :, s], mvfs[:, :, s],
+                                      H, W, h, w) for s in range(2)]
+            return out
+
         # window-start clamps are in full-reference coordinates
         Hr, Wr = mbh * 16, mbw * 16
-        pos_y, pos_x = self._pos[0]
-        syf, sxf, phf = mc_meta(pos_y, pos_x, mv[:, 0, 0], mv[:, 0, 1],
-                                Hr, Wr, 16, 16)
-        syb, sxb, phb = mc_meta(pos_y, pos_x, mv[:, 1, 0], mv[:, 1, 1],
-                                Hr, Wr, 16, 16)
         luma = fused_mc_recon(
             refs[0][0], refs[0][1], _plane_from_tiles(res[0], mbh, mbw, 16, 16),
-            syf, sxf, phf, syb, sxb, phb, mode, h=16, w=16, bidir=bidir)
-        cpos_y, cpos_x = self._pos[1]
-        mvc = _scale_mv(mv, geom.chroma_format)
-        csyf, csxf, cphf = mc_meta(cpos_y, cpos_x, mvc[:, 0, 0], mvc[:, 0, 1],
-                                   Hr >> 1, Wr >> 1, 8, 8)
-        csyb, csxb, cphb = mc_meta(cpos_y, cpos_x, mvc[:, 1, 0], mvc[:, 1, 1],
-                                   Hr >> 1, Wr >> 1, 8, 8)
+            *meta(self._pos[0], mv, Hr, Wr, 16, 16), h=16, w=16, bidir=bidir)
+        # chroma: U and V share the scaled MVs (planar, so no doubled sx)
+        ch, cw = 16 >> ys, 16 >> xs
         u, v = fused_mc_recon_uv(
             (refs[1][0], refs[2][0]), (refs[1][1], refs[2][1]),
-            (_plane_from_tiles(res[1], mbh, mbw, 8, 8),
-             _plane_from_tiles(res[2], mbh, mbw, 8, 8)),
-            csyf, csxf, cphf, csyb, csxb, cphb, mode, h=8, w=8, bidir=bidir)
+            (_plane_from_tiles(res[1], mbh, mbw, ch, cw),
+             _plane_from_tiles(res[2], mbh, mbw, ch, cw)),
+            *meta(self._pos[1], _scale_mv(mv, geom.chroma_format),
+                  Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw, bidir=bidir)
         return luma, u, v
 
     def zero_planes(self):
@@ -184,13 +228,18 @@ class DeviceRecon:
 
 class GopRecon:
     """A chunk of pictures decoded from one uploaded blob (see the module
-    docstring).  ``chunk=1`` is the per-picture latency path."""
+    docstring).  ``chunk=1`` is the per-picture latency path.
+    ``field_support`` selects the metadata form and the kernels (see
+    :class:`DeviceRecon`); a frame-prediction recon refuses field-predicted
+    MBs, whose second-unit vectors its 5-column metadata would drop."""
 
-    def __init__(self, geom: PictureGeometry, chunk: int, device):
+    def __init__(self, geom: PictureGeometry, chunk: int, device,
+                 field_support: bool = False):
         self.geom = geom
         self.chunk = chunk
         self.device = torch.device(device)
-        self.inner = DeviceRecon(geom, self.device)
+        self.inner = DeviceRecon(geom, self.device, field_support)
+        self._cols = meta2_cols(field_support)
         # within-picture dense-grid index fits uint16 for every geometry up
         # to ~2.7K-wide video; 0xFFFF is the padding sentinel
         self._scat_u16 = geom.n_mb * geom.blocks_per_mb < 0xFFFF
@@ -214,12 +263,12 @@ class GopRecon:
         o4 = (o3 + cap_k * sb + 3) & ~3          # pic_k
         o5 = o4 + self.chunk * 4                 # step flags
         o6 = (o5 + self.chunk + 3) & ~3          # meta
-        total = o6 + ((self.chunk * g.n_mb * META2_COLS * 2 + 3) & ~3)
+        total = o6 + ((self.chunk * g.n_mb * self._cols * 2 + 3) & ~3)
         return (o0, o1, o2, o3, o4, o5, o6, total)
 
     def _decode_blob(self, blob, *, cap_pairs, cap_k):
         """Device-side transport decode: uint8 blob tensor -> (residual
-        dense (chunk, n_rows, 64) int16, meta (chunk, n_mb, 5) int16,
+        dense (chunk, n_rows, 64) int16, meta (chunk, n_mb, cols) int16,
         step flags (chunk,) uint8)."""
         geom = self.geom
         dev = blob.device
@@ -248,9 +297,9 @@ class GopRecon:
             # padding rows get distinct indices past the grid
             scat_pos = torch.where(scat_pos >= span, span + iota_k, scat_pos)
         flags = blob[o5:o5 + self.chunk]
-        nm = self.chunk * geom.n_mb * META2_COLS
+        nm = self.chunk * geom.n_mb * self._cols
         meta = blob[o6:o6 + nm * 2].view(torch.int16).reshape(
-            self.chunk, geom.n_mb, META2_COLS)
+            self.chunk, geom.n_mb, self._cols)
 
         # 1) nonzero pairs -> coded coefficient rows.  The row id of each
         #    pair is rebuilt from per-row nonzero counts: rows mark their
@@ -292,11 +341,11 @@ class GopRecon:
                             dtype=torch.uint8, device=blob.device)
         for i, fl in enumerate(step_flags):
             is_b, is_ip = bool(fl & 1), bool(fl & 2)
-            dct_type, fwd, bwd, coded, mv = _unpack_meta2(meta[i])
+            unpacked = _unpack_meta2(meta[i], self.inner.field_support)
             residual = dense[i].view(geom.n_mb, geom.blocks_per_mb, 8, 8)
             out = self.inner._recon_from_residual(
-                residual, dct_type, fwd, bwd, coded, mv,
-                *(r0 if is_b else r1), *r1, bidir=bidir and is_b)
+                residual, *unpacked, *(r0 if is_b else r1), *r1,
+                bidir=bidir and is_b)
             packs[i, :ny].view(geom.height, geom.width).copy_(
                 out[0][:geom.height, :geom.width])
             packs[i, ny:ny + nc].view(ch, cw).copy_(out[1][:ch, :cw])
@@ -324,8 +373,8 @@ class GopRecon:
                 blob[o3:o3 + cap_k * sb].view(sdt),
                 blob[o4:o4 + self.chunk * 4].view(np.int32),
                 blob[o5:o5 + self.chunk],
-                blob[o6:o6 + self.chunk * g.n_mb * META2_COLS * 2].view(
-                    np.int16).reshape(self.chunk, g.n_mb, META2_COLS))
+                blob[o6:o6 + self.chunk * g.n_mb * self._cols * 2].view(
+                    np.int16).reshape(self.chunk, g.n_mb, self._cols))
         return self._stage[key]
 
     def prepare(self, tokens_list, pct_list):
@@ -337,9 +386,10 @@ class GopRecon:
         t = len(tokens_list)
         if not 0 < t <= self.chunk:
             raise ValueError(f"{t} pictures for a chunk of {self.chunk}")
-        if any(tok.field_pred.any() for tok in tokens_list):
-            raise NotImplementedError(
-                "field-based motion compensation is not ported yet")
+        fs = self.inner.field_support
+        if not fs and any(tok.field_pred.any() for tok in tokens_list):
+            raise ValueError("field-predicted MBs need a GopRecon with "
+                             "field_support=True")
         g = self.geom
         n_rows = g.n_mb * g.blocks_per_mb
 
@@ -379,7 +429,7 @@ class GopRecon:
                 sp[off:off + k] = i * n_rows + tok.cblk_idx[:k]
             pk[i] = k
             off += k
-            pack_meta2(tok, out=sm[i])
+            pack_meta2(tok, fs, out=sm[i])
         if p != total_nz:
             raise RuntimeError(f"packed {p} pairs, counted {total_nz}")
         pp[p:] = 255                 # padding pairs resolve out of range

@@ -171,10 +171,15 @@ class MP2VDecoder:
                       "device_s": 0.0, "output_s": 0.0, "bad_slices": 0}
 
     # ------------------------------------------------------------------
-    def _gop_recon_for(self, geom: PictureGeometry, size: int) -> GopRecon:
-        key = (geom, size)
+    def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
+                       size: int) -> GopRecon:
+        """The recon of one geometry, metadata form and chunk size.  A
+        frame recon and a field recon of one geometry share the reference
+        planes: both are ``(y, u, v)`` tuples of the padded sizes."""
+        key = (geom, field_support, size)
         if key not in self._recons:
-            self._recons[key] = GopRecon(geom, size, self.device)
+            self._recons[key] = GopRecon(geom, size, self.device,
+                                         field_support)
         return self._recons[key]
 
     def _emit(self, pending: LazyFrame) -> None:
@@ -287,11 +292,15 @@ class MP2VDecoder:
 
     def _run_chunk(self, batch) -> None:
         """Prepare, upload and reconstruct one chunk of ``batch`` =
-        [(tokens, geom, header), ...], then route its frames."""
+        [(tokens, geom, header), ...], then route its frames.  A chunk
+        with any field-predicted MB takes the field recon (K4), as the JAX
+        package's ``_flush_chunk`` chooses; the latency path decides per
+        picture."""
         geom = batch[0][1]
         pcts = [ph.picture_coding_type for _, _, ph in batch]
         size = self.config.gop_chunk or 1
-        recon = self._gop_recon_for(geom, size)
+        field = any(bool(t.field_pred.any()) for t, _, _ in batch)
+        recon = self._gop_recon_for(geom, field, size)
         t0 = time.perf_counter()
         staged = recon.prepare([b[0] for b in batch], pcts)
         t1 = time.perf_counter()

@@ -1,16 +1,22 @@
-"""Write the 16-picture 1080p 4:2:0 stream fixture that the PyTorch port
-decodes on the GPU (``chip_smoke.py``), with the hashes it is held to.
+"""Write the 16-picture stream fixtures that the PyTorch port decodes on
+the GPU (``chip_smoke.py``), with the hashes they are held to.
 
-The machine with the GPU has no JAX, so it can neither generate the stream
-(``tools/bench_stream.py`` imports the JAX package) nor decode a reference.
-This tool does both here, once:
+The machine with the GPU has no JAX, so it can neither generate a stream
+(the encoder imports the JAX package) nor decode a reference.  This tool
+does both here, once, for two streams:
 
 * ``tests/data/bench_1080p_420_16.m2v``: ``make_bench_stream(16)``, the
-  stream ``bench.py`` times;
-* ``tests/data/bench_1080p_420_16.json``: the stream's sha256 and the
-  sha256, byte count and frame count of the YUV (display order, planes
-  concatenated per frame) that the JAX package decodes from it on the CPU
-  with ``gop_chunk=16``.
+  stream ``bench.py`` times (1920x1088 4:2:0, frame prediction);
+* ``tests/data/interlaced_1080_422_16.m2v``: interlaced content as 1080i
+  broadcast and 4:2:2 production video code it — 1920x1088 4:2:2 frame
+  pictures with field/frame-adaptive motion and DCT
+  (``frame_pred_frame_dct=0``), I P B B …, every picture carrying all four
+  quant matrices as ``make_bench_stream`` loads them, from seed 1729;
+* beside each, ``.json``: the stream's sha256 and the sha256, byte count
+  and frame count of the YUV (display order, planes concatenated per
+  frame) that the JAX package decodes from it on the CPU with
+  ``gop_chunk=16``; for the interlaced stream also its counts of
+  field-predicted and field-DCT macroblocks.
 
 Run from the repository root:  ``python tools/make_torch_fixture.py``
 """
@@ -25,7 +31,8 @@ import tempfile
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-for _p in (_REPO, os.path.join(_REPO, "tools")):
+for _p in (_REPO, os.path.join(_REPO, "tools"),
+           os.path.join(_REPO, "tests")):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
@@ -33,6 +40,8 @@ N_PICTURES = 16
 DATA_DIR = os.path.join(_REPO, "tests", "data")
 STREAM_NAME = "bench_1080p_420_16.m2v"
 META_NAME = "bench_1080p_420_16.json"
+INTERLACED_STREAM_NAME = "interlaced_1080_422_16.m2v"
+INTERLACED_META_NAME = "interlaced_1080_422_16.json"
 
 
 def make_stream() -> bytes:
@@ -42,8 +51,44 @@ def make_stream() -> bytes:
         return make_bench_stream(N_PICTURES, tmp)
 
 
-def describe(data: bytes) -> dict:
-    """Hashes of a stream and of the YUV the JAX package decodes from it."""
+def _full_qmext(rng):
+    """A quant-matrix extension loading all four matrices at random, drawn
+    as ``tools/bench_stream.py`` draws them."""
+    import numpy as np
+    from tiny_mp2v_dec_tpu import headers as H
+
+    def mat():
+        return rng.integers(1, 256, 64).astype(np.uint8)
+    return H.QuantMatrixExtension(
+        load_intra_quantiser_matrix=1, intra_quantiser_matrix=mat(),
+        load_non_intra_quantiser_matrix=1, non_intra_quantiser_matrix=mat(),
+        load_chroma_intra_quantiser_matrix=1,
+        chroma_intra_quantiser_matrix=mat(),
+        load_chroma_non_intra_quantiser_matrix=1,
+        chroma_non_intra_quantiser_matrix=mat())
+
+
+def make_interlaced_stream(mbw: int = 120, mbh: int = 68) -> bytes:
+    """The interlaced 4:2:2 stream, generated from its fixed seed."""
+    import numpy as np
+    from m2v_encoder import encode_stream, random_picture
+    from tiny_mp2v_dec_tpu import headers as H
+    rng = np.random.default_rng(1729)
+    pcts = [H.PCT_I] + [H.PCT_P, H.PCT_B, H.PCT_B] * (N_PICTURES // 3)
+    pics = []
+    for i in range(N_PICTURES):
+        p = random_picture(rng, mbw, mbh, H.CHROMA_422, pcts[i], fpfd=False,
+                           allow_field_motion=True)
+        p.temporal_reference = i
+        p.qmext = _full_qmext(rng)
+        pics.append(p)
+    return encode_stream(mbw * 16, mbh * 16, H.CHROMA_422, pics)
+
+
+def describe(data: bytes, field_counts: bool = False) -> dict:
+    """Hashes of a stream and of the YUV the JAX package decodes from it;
+    with ``field_counts``, also how many macroblocks are field-predicted
+    and field-DCT coded."""
     from tiny_mp2v_dec_tpu import DecoderConfig, MP2VDecoder
     frames = MP2VDecoder(DecoderConfig(gop_chunk=N_PICTURES)).decode(data)
     yuv = hashlib.sha256()
@@ -52,7 +97,7 @@ def describe(data: bytes) -> dict:
         b = f.tobytes()
         yuv.update(b)
         n_bytes += len(b)
-    return {
+    meta = {
         "stream_sha256": hashlib.sha256(data).hexdigest(),
         "stream_bytes": len(data),
         "yuv_sha256": yuv.hexdigest(),
@@ -60,18 +105,27 @@ def describe(data: bytes) -> dict:
         "frames": len(frames),
         "decoded_by": "tiny_mp2v_dec_tpu MP2VDecoder(gop_chunk=16), JAX CPU",
     }
+    if field_counts:
+        toks = [t for t, _, _ in MP2VDecoder().tokenize_stream(data)]
+        meta["macroblocks"] = sum(t.geom.n_mb for t in toks)
+        meta["field_pred_mbs"] = sum(int(t.field_pred.sum()) for t in toks)
+        meta["field_dct_mbs"] = sum(int(t.dct_type.sum()) for t in toks)
+    return meta
 
 
 def main() -> int:
-    data = make_stream()
-    meta = describe(data)
     os.makedirs(DATA_DIR, exist_ok=True)
-    with open(os.path.join(DATA_DIR, STREAM_NAME), "wb") as f:
-        f.write(data)
-    with open(os.path.join(DATA_DIR, META_NAME), "w") as f:
-        json.dump(meta, f, indent=1)
-        f.write("\n")
-    print(json.dumps(meta))
+    for stream_name, meta_name, data, counts in (
+            (STREAM_NAME, META_NAME, make_stream(), False),
+            (INTERLACED_STREAM_NAME, INTERLACED_META_NAME,
+             make_interlaced_stream(), True)):
+        meta = describe(data, counts)
+        with open(os.path.join(DATA_DIR, stream_name), "wb") as f:
+            f.write(data)
+        with open(os.path.join(DATA_DIR, meta_name), "w") as f:
+            json.dump(meta, f, indent=1)
+            f.write("\n")
+        print(json.dumps(meta))
     return 0
 
 

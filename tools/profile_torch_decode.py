@@ -1,18 +1,22 @@
-"""Where the PyTorch port's 1080p decode spends its time, on one GPU.
+"""Where the PyTorch port's 1080-line decode spends its time, on one GPU.
 
-    python tools/profile_torch_decode.py [--runs 5] [--out chiprun_out/...]
+    python tools/profile_torch_decode.py [FIXTURE] [--runs 5] [--out ...]
 
-Decodes the committed 16-picture 1080p 4:2:0 fixture
-(``tests/data/bench_1080p_420_16.m2v``) with ``gop_chunk=16`` on ``cuda``:
+Decodes a committed 16-picture fixture — by default
+``tests/data/bench_1080p_420_16.m2v`` (1080p 4:2:0, frame prediction);
+``tests/data/interlaced_1080_422_16.m2v`` is the interlaced 4:2:2 one —
+with ``gop_chunk=16`` on ``cuda``:
 
 * stages: the decoder's own path taken apart, with a device synchronize
   after each stage — tokenize (host), prepare (host), upload, decode_blob
   (pairs -> rows, K1, dense grid), and the per-picture reconstruction loop
-  (residual layout, mc_meta, K2, K3, packing);
+  (residual layout, mc_meta / mc_field_meta, K2 + K3 or K4, packing);
 * profiler: one unsynchronized decode under ``torch.profiler``, device
   time summed by kernel name, and the device's busy share of the wall.
 
-Prints one JSON object and writes it to ``--out``.  Needs a CUDA device.
+Prints one JSON object and writes it to ``--out`` (by default
+``chiprun_out/profile_torch_decode_<fixture>.json``).  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -34,7 +39,8 @@ def _stages(torch, dec, data):
     toks = dec.tokenize_stream(data)
     t.append(time.perf_counter())
     geom = toks[0][1]
-    recon = dec._gop_recon_for(geom, dec.config.gop_chunk)
+    field = any(bool(t.field_pred.any()) for t, _, _ in toks)
+    recon = dec._gop_recon_for(geom, field, dec.config.gop_chunk)
     pcts = [ph.picture_coding_type for _, _, ph in toks]
     (cap_pairs, cap_k), blob, n = recon.prepare([x[0] for x in toks], pcts)
     t.append(time.perf_counter())
@@ -60,10 +66,13 @@ def _stages(torch, dec, data):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("fixture", nargs="?", default=FIXTURE)
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "chiprun_out", "profile_torch_decode.json"))
+    ap.add_argument("--out")
     args = ap.parse_args()
+    name = os.path.splitext(os.path.basename(args.fixture))[0]
+    out_path = args.out or os.path.join(
+        REPO, "chiprun_out", f"profile_torch_decode_{name}.json")
 
     import torch
     if not torch.cuda.is_available():
@@ -72,7 +81,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder
 
-    with open(FIXTURE, "rb") as f:
+    with open(args.fixture, "rb") as f:
         data = f.read()
     dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
                                     pictures_pool_size=0, device="cuda"))
@@ -107,7 +116,12 @@ def main() -> int:
 
     med = lambda xs: statistics.median(xs)  # noqa: E731
     out = {
+        "fixture": name,
         "card": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(),
         "frames": len(frames),
         "wall_s_median": med(walls),
         "fps_median": len(frames) / med(walls),
@@ -123,8 +137,8 @@ def main() -> int:
         "top_device_ms": [{"name": n, "ms": v[0], "count": v[1]}
                           for n, v in top],
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0
