@@ -9,21 +9,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: the CUDA kernels (``tiny_mp2v_dec_tpu_torch/csrc/*.cu``, nvcc for
    sm_90a) and the native tokenizer, from this checkout into ``build/``;
 3. kernels: K1 (IDCT), K2 (luma MC+recon), K3 (U+V MC+recon, at the
-   chroma tile of every format: 8x8, 16x8, 16x16) and K4 (their field
-   form: luma 16x16, chroma at every tile), each on the card at the shapes
-   a 1080-line chunk gives it, with ``bidir`` True and False, compared with
-   its plain PyTorch version on the same inputs — exact equality, as all
-   arithmetic is integer — and timed against it (device time per call,
-   see :func:`cuda_ms`);
-4. end to end, two paths through ``MP2VDecoder`` on ``cuda``, each with
-   the launch counts reset just before and read just after its decode:
-   the committed 16-picture 1080p 4:2:0 IBBP stream
-   (``tests/data/bench_1080p_420_16.m2v``: K1, K2, K3) and the interlaced
-   1080-line 4:2:2 stream with field motion and field DCT
-   (``tests/data/interlaced_1080_422_16.m2v``: K1 and K4).  Every kernel of
-   a path must have launched, and each YUV sha256 must equal the one
-   recorded from the JAX package (the ``.json`` beside each stream); then
-   warm decode frames/s of each.
+   chroma tile of every format: 8x8, 16x8, 16x16), K4 (their field form:
+   luma 16x16, chroma at every tile), K5 and K6 (the same function through
+   a window staged in shared memory, ``MP2V_MC_IMPL=roll``: luma, and U+V
+   at every chroma tile), K7 and K8 (packed prediction, four pixels per
+   word, frame and field form, ``MP2V_MC_IMPL=swar``: one component per
+   call, luma and one chroma plane at every tile), each on the card at the
+   shapes a 1080-line chunk gives it, with ``bidir`` True and False,
+   compared with its plain PyTorch version on the same inputs — exact
+   equality, as all arithmetic is integer — and timed against it (device
+   time per call, see :func:`cuda_ms`);
+4. end to end, five paths through ``MP2VDecoder`` on ``cuda``: a
+   committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
+   decoder is built), each with the launch counts reset just before and
+   read just after its decode.  The 16-picture 1080p 4:2:0 IBBP stream
+   (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (K1, K2, K3),
+   ``roll`` (K1, K5, K6) and ``swar`` (K1, K7); the interlaced 1080-line
+   4:2:2 stream with field motion and field DCT
+   (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (K1, K4) and
+   ``swar`` (K1, K8).  Each path must launch its kernels exactly as often
+   as :data:`PATHS` says and no MC kernel of another implementation, and
+   each YUV sha256 must equal the one recorded from the JAX package (the
+   ``.json`` beside each stream); then warm decode frames/s of each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,13 +48,27 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
 DATA = os.path.join(REPO, "tests", "data")
-# end-to-end paths: fixture -> the kernels its decode must launch
+# end-to-end paths: (fixture, MP2V_MC_IMPL) -> the launches of its decode
+# (one chunk of 16 pictures: K1 once, the two-plane MC kernels once per
+# picture, the SWAR kernels once per component per picture)
 PATHS = {
-    "bench_1080p_420_16": ("idct8x8", "mc_recon_luma", "mc_recon_uv"),
-    "interlaced_1080_422_16": ("idct8x8", "mc_field_luma", "mc_field_uv"),
+    ("bench_1080p_420_16", "mxu"): {
+        "idct8x8": 1, "mc_recon_luma": 16, "mc_recon_uv": 16},
+    ("interlaced_1080_422_16", "mxu"): {
+        "idct8x8": 1, "mc_field_luma": 16, "mc_field_uv": 16},
+    ("bench_1080p_420_16", "roll"): {
+        "idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16},
+    ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar": 48},
+    ("interlaced_1080_422_16", "swar"): {"idct8x8": 1, "mc_swar_field": 48},
 }
+MC_KERNELS = {k for counts in PATHS.values() for k in counts} - {"idct8x8"}
 TIMED_RUNS = 20
-DECODE_RUNS = 5
+# warm decodes per path: the two mxu paths 5, the others 3 (time limit)
+DECODE_RUNS = {"mxu": 5, "roll": 3, "swar": 3}
+# (label, tile, plane rows, plane columns) of each plane a kernel takes
+LUMA = (("luma", (16, 16), 1088, 1920),)
+CHROMA = (("4:2:0", (8, 8), 544, 960), ("4:2:2", (16, 8), 1088, 960),
+          ("4:4:4", (16, 16), 1088, 1920))
 
 
 def fail(msg: str) -> None:
@@ -160,17 +181,37 @@ def mc_inputs(torch, np, rng, H, W, th, tw, field):
     return plane, resid, meta
 
 
+def mc_kernel(mc_fused, impl: str, uv: bool, field: bool):
+    """(wrapper, plain version) of the MC kernel of ``impl`` in that form:
+    ``mxu`` K2 (luma) or K3 (U+V), K4 with ``field``; ``roll`` K5 or K6;
+    ``swar`` K7 (one component, no residual), K8 with ``field``."""
+    if impl == "swar":
+        return ((mc_fused.fused_mc_pred_swar_field,
+                 mc_fused.fused_mc_pred_swar_field_ref) if field else
+                (mc_fused.fused_mc_pred_swar, mc_fused.fused_mc_pred_swar_ref))
+    if uv:
+        return ({"mxu": mc_fused.fused_mc_recon_uv,
+                 "roll": mc_fused.fused_mc_recon_uv_roll}[impl],
+                mc_fused.fused_mc_recon_uv_ref)
+    return ({"mxu": mc_fused.fused_mc_recon,
+             "roll": mc_fused.fused_mc_recon_roll}[impl],
+            mc_fused.fused_mc_recon_ref)
+
+
 def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
-             field: bool = False):
-    """K2 (uv=False, one plane) or K3 (uv=True, U and V) — or, with
-    ``field``, K4 in that form — with ``bidir`` True and False."""
+             field: bool = False, impl: str = "mxu"):
+    """The MC kernel of ``impl`` (see :func:`mc_kernel`) on one (H, W)
+    plane, or U and V with ``uv``, with ``bidir`` True and False.  The SWAR
+    kernels' words are compared as words and their error read on the
+    unpacked pixels."""
     from tiny_mp2v_dec_tpu_torch.ops import mc_fused
     plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw, field)
-    if uv:
-        fn, ref_fn = mc_fused.fused_mc_recon_uv, mc_fused.fused_mc_recon_uv_ref
+    fn, ref_fn = mc_kernel(mc_fused, impl, uv, field)
+    if impl == "swar":
+        args = (plane(), plane())
+    elif uv:
         args = ((plane(), plane()), (plane(), plane()), (resid(), resid()))
     else:
-        fn, ref_fn = mc_fused.fused_mc_recon, mc_fused.fused_mc_recon_ref
         args = (plane(), plane(), resid())
     out = {}
     for bidir in (True, False):
@@ -184,7 +225,11 @@ def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
         torch.cuda.synchronize()
         got = torch.stack(got) if uv else got
         ref = torch.stack(ref) if uv else ref
-        err = max_abs_err(torch, got, ref)
+        if impl == "swar":
+            err = max_abs_err(torch, mc_fused.unpack_words(got),
+                              mc_fused.unpack_words(ref))
+        else:
+            err = max_abs_err(torch, got, ref)
         if err or not torch.equal(got, ref):
             fail(f"{name} bidir={bidir} differs from its plain version "
                  f"(max abs err {err})")
@@ -198,25 +243,28 @@ def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
     return out
 
 
-def check_chroma_tiles(torch, np, rng, name, field):
-    """K3 (or K4) at the chroma tile of each format; the record keeps the
-    interlaced 4:2:2 path's 16x8 form for K4 and the 4:2:0 path's 8x8 form
-    for K3, and the largest error of all."""
-    recs = {tile: check_mc(torch, np, rng, f"{name} {label}", H, W, *tile,
-                           uv=True, field=field)
-            for label, tile, H, W in (("4:2:0", (8, 8), 544, 960),
-                                      ("4:2:2", (16, 8), 1088, 960),
-                                      ("4:4:4", (16, 16), 1088, 1920))}
-    rec = dict(recs[(16, 8) if field else (8, 8)])
+def check_tiles(torch, np, rng, name, planes, main, **kw):
+    """:func:`check_mc` on each (label, tile, H, W) of ``planes``.  The
+    record keeps the times of plane ``main`` (the one the main path gives
+    the kernel), every plane's times under ``tiles`` and the largest
+    error of all."""
+    recs = {label: check_mc(torch, np, rng, f"{name} {label}", H, W, *tile,
+                            **kw)
+            for label, tile, H, W in planes}
+    rec = dict(recs[main])
     rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    rec["tiles"] = {label: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+                    for label, r in recs.items()}
     return rec
 
 
-def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, kernels):
-    """Decode one fixture through the decoder's entry point with the launch
-    counts reset just before and read just after; check the hash and that
-    every kernel of the path launched; then time warm decodes.  Returns
-    (launches, frames/s)."""
+def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
+                expected):
+    """Decode one fixture under ``MP2V_MC_IMPL=impl`` through the decoder's
+    entry point with the launch counts reset just before and read just
+    after; check the hash, that every kernel of the path launched as often
+    as ``expected`` says and that no MC kernel of another implementation
+    did; then time warm decodes.  Returns (launches, frames/s)."""
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
         data = f.read()
     with open(os.path.join(DATA, name + ".json")) as f:
@@ -224,26 +272,35 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, kernels):
     if hashlib.sha256(data).hexdigest() != want["stream_sha256"]:
         fail(f"{name}: the stream fixture does not match its recorded "
              f"sha256")
+    os.environ["MP2V_MC_IMPL"] = impl
     dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
                                     pictures_pool_size=0, device="cuda"))
+    label = f"{name} [{impl}]"
     _build.LAUNCHES.clear()
     frames = dec.decode(data)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     digest, n_bytes = yuv_sha256(frames)
-    print(f"decode {name}: {len(frames)} frames, {n_bytes} YUV bytes, "
+    print(f"decode {label}: {len(frames)} frames, {n_bytes} YUV bytes, "
           f"sha256 {digest}; launches {launches}")
     if len(frames) != want["frames"] or n_bytes != want["yuv_bytes"]:
-        fail(f"{name}: decoded {len(frames)} frames / {n_bytes} bytes, "
+        fail(f"{label}: decoded {len(frames)} frames / {n_bytes} bytes, "
              f"expected {want['frames']} / {want['yuv_bytes']}")
     if digest != want["yuv_sha256"]:
-        fail(f"{name}: YUV sha256 {digest} != JAX reference "
+        fail(f"{label}: YUV sha256 {digest} != JAX reference "
              f"{want['yuv_sha256']}")
-    for k in kernels:
-        if launches.get(k, 0) < 1:
-            fail(f"{name}: the decode never launched kernel {k}")
+    for k, n in expected.items():
+        if launches.get(k, 0) != n:
+            fail(f"{label}: kernel {k} launched {launches.get(k, 0)} "
+                 f"times, expected {n}")
+    stray = {k: n for k, n in launches.items()
+             if k in MC_KERNELS and k not in expected}
+    if stray:
+        fail(f"{label}: MC kernels of another implementation launched: "
+             f"{stray}")
+    runs = DECODE_RUNS[impl]
     walls = []
-    for _ in range(DECODE_RUNS):
+    for _ in range(runs):
         dec.reset()
         t0 = time.perf_counter()
         frames = dec.decode(data)
@@ -251,7 +308,7 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, kernels):
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     fps = len(frames) / wall
-    print(f"decode {name} warm: median {wall:.4f} s over {DECODE_RUNS} "
+    print(f"decode {label} warm: median {wall:.4f} s over {runs} "
           f"runs = {fps:.2f} frames/s (best {min(walls):.4f} s)")
     return launches, fps
 
@@ -273,7 +330,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
     missing = [p for p in [PACKAGE] + [os.path.join(DATA, n + ".m2v")
-                                       for n in PATHS]
+                                       for n, _ in PATHS]
                if not os.path.exists(p)]
     if missing:
         fail(f"run from a checkout of the repository: {missing} missing")
@@ -309,33 +366,43 @@ def main() -> int:
         "idct8x8": check_idct(torch, np, rng),
         "mc_recon_luma": check_mc(torch, np, rng, "K2 mc_recon_luma",
                                   1088, 1920, 16, 16, uv=False),
-        "mc_recon_uv": check_chroma_tiles(torch, np, rng, "K3 mc_recon_uv",
-                                          field=False),
+        "mc_recon_uv": check_tiles(torch, np, rng, "K3 mc_recon_uv", CHROMA,
+                                   "4:2:0", uv=True),
         "mc_field_luma": check_mc(torch, np, rng, "K4 mc_field_luma",
                                   1088, 1920, 16, 16, uv=False, field=True),
-        "mc_field_uv": check_chroma_tiles(torch, np, rng, "K4 mc_field_uv",
-                                          field=True),
+        "mc_field_uv": check_tiles(torch, np, rng, "K4 mc_field_uv", CHROMA,
+                                   "4:2:2", uv=True, field=True),
+        "mc_roll_luma": check_mc(torch, np, rng, "K5 mc_roll_luma",
+                                 1088, 1920, 16, 16, uv=False, impl="roll"),
+        "mc_roll_uv": check_tiles(torch, np, rng, "K6 mc_roll_uv", CHROMA,
+                                  "4:2:0", uv=True, impl="roll"),
+        "mc_swar": check_tiles(torch, np, rng, "K7 mc_swar", LUMA + CHROMA,
+                               "luma", uv=False, impl="swar"),
+        "mc_swar_field": check_tiles(torch, np, rng, "K8 mc_swar_field",
+                                     LUMA + CHROMA, "luma", uv=False,
+                                     field=True, impl="swar"),
     }
 
     # 4) end to end through the decoder's entry point, one path at a time
     launches = {}
-    for name, path_kernels in PATHS.items():
+    for (name, impl), expected in PATHS.items():
         counts, _ = decode_path(torch, _build, MP2VDecoder, DecoderConfig,
-                                name, path_kernels)
+                                name, impl, expected)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
     csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
+    mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"
     sources = {
         "idct8x8": ("idct.cu", "tiny_mp2v_dec_tpu/ops/idct.py:49"),
-        "mc_recon_luma": ("mc_recon.cu",
-                          "tiny_mp2v_dec_tpu/ops/mc_pallas.py:445"),
-        "mc_recon_uv": ("mc_recon.cu",
-                        "tiny_mp2v_dec_tpu/ops/mc_pallas.py:489"),
-        "mc_field_luma": ("mc_recon.cu",
-                          "tiny_mp2v_dec_tpu/ops/mc_pallas.py:353"),
-        "mc_field_uv": ("mc_recon.cu",
-                        "tiny_mp2v_dec_tpu/ops/mc_pallas.py:353"),
+        "mc_recon_luma": ("mc_recon.cu", f"{mcp}:445"),
+        "mc_recon_uv": ("mc_recon.cu", f"{mcp}:489"),
+        "mc_field_luma": ("mc_recon.cu", f"{mcp}:353"),
+        "mc_field_uv": ("mc_recon.cu", f"{mcp}:353"),
+        "mc_roll_luma": ("mc_roll.cu", f"{mcp}:122"),
+        "mc_roll_uv": ("mc_roll.cu", f"{mcp}:245"),
+        "mc_swar": ("mc_swar.cu", f"{mcp}:769"),
+        "mc_swar_field": ("mc_swar.cu", f"{mcp}:805"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": csrc + sources[name][0],

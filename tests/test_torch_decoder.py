@@ -130,7 +130,7 @@ def test_field_motion_matches_jax_and_golden(gop_chunk):
                       **FIELD)
     assert _field_pictures(data) > 0
     dec, _ = _decode_all_three(data, gop_chunk)
-    assert any(fs for _, fs, _ in dec._recons)
+    assert any(key[1] for key in dec._recons)
 
 
 @pytest.mark.parametrize("gop_chunk", [0, 4])
@@ -179,7 +179,7 @@ def test_frame_and_field_chunks_share_references():
               for i in range(0, 8, 2)]
     assert chunks == [False, True, False, True]
     dec, _ = _decode_all_three(data, 2)
-    assert {fs for _, fs, _ in dec._recons} == {False, True}
+    assert {key[1] for key in dec._recons} == {False, True}
 
 
 @pytest.mark.parametrize("opts", [{"mesh": "rows"}, {"use_pallas": True},

@@ -38,4 +38,4 @@ def test_interlaced_fixture_regenerates_and_decodes_to_recorded_hashes():
     for f in frames:
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
-    assert [fs for _, fs, _ in dec._recons] == [True]
+    assert [key[1] for key in dec._recons] == [True]

@@ -1,6 +1,7 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version (K3 and K4 at the chroma tile of every format), and both
-1080-line fixtures decoded through the kernels.
+PyTorch version (K3, K4, K6, K7 and K8 at the chroma tile of every format),
+and both 1080-line fixtures decoded through the kernels of each
+``MP2V_MC_IMPL``.
 
 These tests skip where torch finds no CUDA device.  The file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine that has
@@ -173,3 +174,106 @@ def test_decode_fixture_through_kernels(name, kernels):
     assert h.hexdigest() == want["yuv_sha256"]
     for k in kernels:
         assert _build.LAUNCHES[k] > before.get(k, 0), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+def test_roll_luma_kernel_matches_plain(bidir):
+    """K5 against K2's plain version, which computes the same function."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 18, 1088, 1920, 16, 1)
+    before = _build.LAUNCHES["mc_roll_luma"]
+    got = mc_fused.fused_mc_recon_roll(r0[0], r1[0], res[0], *meta,
+                                       bidir=bidir)
+    want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
+                                       h=16, w=16, bidir=bidir)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_roll_luma"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("H,W,tile", [(544, 960, (8, 8)),
+                                      (1088, 960, (16, 8)),
+                                      (1088, 1920, (16, 16))])
+def test_roll_uv_kernel_matches_plain(H, W, tile, bidir):
+    """K6 at the chroma tile of every format."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 19, H, W, tile, 2)
+    args = (tuple(r0), tuple(r1), tuple(res), *meta)
+    before = _build.LAUNCHES["mc_roll_uv"]
+    got = mc_fused.fused_mc_recon_uv_roll(*args, h=tile[0], w=tile[1],
+                                          bidir=bidir)
+    want = mc_fused.fused_mc_recon_uv_ref(*args, h=tile[0], w=tile[1],
+                                          bidir=bidir)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_roll_uv"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [False, True])
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("H,W,tile", [(1088, 1920, (16, 16)),
+                                      (544, 960, (8, 8)),
+                                      (1088, 960, (16, 8))])
+def test_swar_kernel_matches_plain(H, W, tile, bidir, field):
+    """K7 (K8 with ``field``) on one component: luma and 4:4:4 chroma at
+    16x16, 4:2:0 and 4:2:2 chroma; words equal to the plain version's."""
+    dev = _require_cuda()
+    r0, r1, _, meta = _mc_case(dev, 20, H, W, tile, 1, field=field)
+    fn, ref_fn, counter = (
+        (mc_fused.fused_mc_pred_swar_field,
+         mc_fused.fused_mc_pred_swar_field_ref, "mc_swar_field") if field
+        else (mc_fused.fused_mc_pred_swar, mc_fused.fused_mc_pred_swar_ref,
+              "mc_swar"))
+    before = _build.LAUNCHES[counter]
+    got = fn(r0[0], r1[0], *meta, h=tile[0], w=tile[1], bidir=bidir)
+    want = ref_fn(r0[0], r1[0], *meta, h=tile[0], w=tile[1], bidir=bidir)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (H, W // 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,impl,kernels", [
+    ("bench_1080p_420_16", "roll", ("idct8x8", "mc_roll_luma", "mc_roll_uv")),
+    ("bench_1080p_420_16", "swar", ("idct8x8", "mc_swar")),
+    ("interlaced_1080_422_16", "swar", ("idct8x8", "mc_swar_field")),
+])
+def test_decode_fixture_under_mc_impl(monkeypatch, name, impl, kernels):
+    """Under ``MP2V_MC_IMPL`` roll and swar the fixtures decode to the same
+    JAX hash through that implementation's kernels, and no mxu kernel."""
+    _require_cuda()
+    monkeypatch.setenv("MP2V_MC_IMPL", impl)
+    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
+        data = f.read()
+    with open(os.path.join(DATA, name + ".json")) as f:
+        want = json.load(f)
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
+                                    pictures_pool_size=0, device="cuda"))
+    before = dict(_build.LAUNCHES)
+    frames = dec.decode(data)
+    h = hashlib.sha256()
+    for f in frames:
+        h.update(f.tobytes())
+    assert h.hexdigest() == want["yuv_sha256"]
+    for k in kernels:
+        assert _build.LAUNCHES[k] > before.get(k, 0), k
+    for k in ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
+              "mc_field_uv"):
+        assert _build.LAUNCHES[k] == before.get(k, 0), k
+
+
+@pytest.mark.cuda
+def test_roll_with_field_support_refused_on_cuda():
+    """An explicit roll with field support has no kernel: on the card the
+    recon refuses it rather than run the plain version there."""
+    dev = _require_cuda()
+    from tiny_mp2v_dec_tpu_torch import PictureGeometry
+    from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
+    geom = PictureGeometry(width=32, height=32, chroma_format=1)
+    with pytest.raises(ValueError, match="roll"):
+        DeviceRecon(geom, dev, field_support=True, mc_impl="roll")

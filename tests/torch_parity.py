@@ -31,3 +31,54 @@ def assert_frames_equal(fa, fb):
         np.testing.assert_array_equal(a.u, b.u, err_msg=f"frame {i} U")
         np.testing.assert_array_equal(a.v, b.v, err_msg=f"frame {i} V")
 
+
+def device_recon_parity(mc_impl, cf, width, height, field, seed,
+                        bidir=True):
+    """One picture through the port's ``DeviceRecon(mc_impl=...)`` on the
+    CPU and through the JAX package's ``DeviceRecon`` on its Pallas path
+    (interpret mode; for an explicit roll with field support the JAX
+    package turns the kernel off and takes its XLA gather), with the same
+    random residual, tokens and reference planes (``random_tokens``, the
+    recipe of test_pallas_kernels.py), field prediction on about half the
+    inter MBs when ``field``.  Asserts the three planes are equal."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from tiny_mp2v_dec_tpu.ops.recon import DeviceRecon as JaxRecon
+    from tiny_mp2v_dec_tpu.parallel.mesh import random_tokens
+    from tiny_mp2v_dec_tpu.tokenizer.types import PictureGeometry as JaxGeom
+    from tiny_mp2v_dec_tpu_torch import PictureGeometry
+    from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
+
+    rng = np.random.default_rng(seed)
+    geom = JaxGeom(width=width, height=height, chroma_format=cf)
+    n = geom.n_mb
+    t = random_tokens(rng, geom)
+    t.dct_type[:] = rng.random(n) < 0.3
+    if field:
+        t.field_pred[:] = ~t.intra & (rng.random(n) < 0.5)
+        t.mvfs[:] = rng.integers(0, 2, t.mvfs.shape)
+    residual = rng.integers(-300, 300,
+                            (n, geom.blocks_per_mb, 8, 8)).astype(np.int16)
+    refs = [rng.integers(0, 256, s).astype(np.uint8)
+            for s in (geom.luma_padded, geom.chroma_padded,
+                      geom.chroma_padded) * 2]
+    vecs = [np.ascontiguousarray(v) for v in (
+        t.dct_type, t.fwd, t.bwd, t.field_pred, t.coded, t.mv, t.mvfs)]
+    jr = JaxRecon(geom, field_support=field, use_pallas_mc=True,
+                  use_pallas_idct=False, pallas_interpret=True,
+                  mc_impl=mc_impl)
+    want = jax.jit(jr._recon_from_residual, static_argnames=("bidir",))(
+        jnp.asarray(residual), *map(jnp.asarray, vecs),
+        *map(jnp.asarray, refs), bidir=bidir)
+    pr = DeviceRecon(PictureGeometry(width=width, height=height,
+                                     chroma_format=cf), "cpu",
+                     field_support=field, mc_impl=mc_impl)
+    assert pr.mc_impl == mc_impl
+    got = pr._recon_from_residual(
+        torch.from_numpy(residual), *map(torch.from_numpy, vecs),
+        *map(torch.from_numpy, refs), bidir=bidir)
+    for comp, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=f"component {comp}")

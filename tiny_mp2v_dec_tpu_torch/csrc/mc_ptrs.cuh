@@ -1,0 +1,74 @@
+// The argument list every MC entry point of csrc/mc_*.cu takes, and the
+// pointer array at its head (MC_PTRS = 27 in ops/_build.py):
+//
+//   0-1  ref0[2]   forward reference planes (U, V; luma forms use [0])
+//   2-3  ref1[2]   backward reference planes
+//   4-5  res[2]    int16 residual planes (null for the SWAR forms)
+//   6-7  out[2]    output planes: uint8 (H, W); for the SWAR forms out[0]
+//                  is the (H, W / 4) uint32 word plane
+//   8-14 syf, sxf, phf, syb, sxb, phb, mode   per-MB int32 vectors
+//   15-26 the field tuples (C0, sx0, ph0, C1, sx1, ph1), forward then
+//        backward (null for the frame forms)
+//
+// Then the tile rows and columns, n_mb, the MB row width mbw, the
+// reference plane's Hr and Wr, bidir and the stream.
+#pragma once
+
+#include <stdint.h>
+
+namespace mp2v {
+
+struct Planes {
+  const uint8_t* ref0[2];
+  const uint8_t* ref1[2];
+  const int16_t* res[2];
+  uint8_t* out[2];
+};
+
+// One direction's per-MB vectors: the frame window (sy, sx, ph) and the
+// field units' (C, sx, ph) for r = 0, 1.
+struct DirMeta {
+  const int32_t* sy;
+  const int32_t* sx;
+  const int32_t* ph;
+  const int32_t* fc[2];
+  const int32_t* fx[2];
+  const int32_t* fp[2];
+};
+
+inline Planes planes_of(const void* const* ptrs) {
+  Planes p;
+  for (int k = 0; k < 2; ++k) {
+    p.ref0[k] = (const uint8_t*)ptrs[0 + k];
+    p.ref1[k] = (const uint8_t*)ptrs[2 + k];
+    p.res[k] = (const int16_t*)ptrs[4 + k];
+    p.out[k] = (uint8_t*)ptrs[6 + k];
+  }
+  return p;
+}
+
+// direction s: 0 forward, 1 backward
+inline DirMeta dir_meta(const void* const* ptrs, int s) {
+  const int32_t* const* q = (const int32_t* const*)ptrs;
+  DirMeta d;
+  d.sy = q[8 + 3 * s];
+  d.sx = q[9 + 3 * s];
+  d.ph = q[10 + 3 * s];
+  for (int r = 0; r < 2; ++r) {
+    d.fc[r] = q[15 + 6 * s + 3 * r];
+    d.fx[r] = q[16 + 6 * s + 3 * r];
+    d.fp[r] = q[17 + 6 * s + 3 * r];
+  }
+  return d;
+}
+
+inline const int32_t* modes_of(const void* const* ptrs) {
+  return (const int32_t*)ptrs[14];
+}
+
+}  // namespace mp2v
+
+#define MP2V_MC_ARGS                                                      \
+  const void *const *ptrs, int th, int tw, int n_mb, int mbw, int Hr,     \
+      int Wr, int bidir, void *stream
+#define MP2V_MC_FWD ptrs, th, tw, n_mb, mbw, Hr, Wr, bidir, stream

@@ -46,25 +46,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mc_ptrs.cuh"
+
 namespace {
 
-struct Planes {
-  const uint8_t* ref0[2];
-  const uint8_t* ref1[2];
-  const int16_t* res[2];
-  uint8_t* out[2];
-};
-
-// One direction's per-MB vectors: the frame window (sy, sx, ph) and the
-// field units' (C, sx, ph) for r = 0, 1.
-struct DirMeta {
-  const int32_t* sy;
-  const int32_t* sx;
-  const int32_t* ph;
-  const int32_t* fc[2];
-  const int32_t* fx[2];
-  const int32_t* fp[2];
-};
+using mp2v::DirMeta;
+using mp2v::Planes;
 
 __device__ __forceinline__ int tap(const uint8_t* __restrict__ ref, int Hr,
                                    int Wr, int y, int x) {
@@ -141,38 +128,15 @@ __global__ void mc_recon_kernel(Planes p, DirMeta fm, DirMeta bm,
   (pl ? p.out[1] : p.out[0])[o] = (uint8_t)val;
 }
 
-// Pointer order (27 pointers, MC_PTRS in ops/_build.py): ref0[2], ref1[2],
-// res[2], out[2], then syf, sxf, phf, syb, sxb, phb, mode, then the field
-// tuples (C0, sx0, ph0, C1, sx1, ph1) forward and backward.  The luma forms
-// read only index 0 of each plane pair; the frame forms leave the field
-// tuples unread (null).
-
-DirMeta dir_meta(const void* const* ptrs, int s) {
-  const int32_t* const* q = (const int32_t* const*)ptrs;
-  DirMeta d;
-  d.sy = q[8 + 3 * s];
-  d.sx = q[9 + 3 * s];
-  d.ph = q[10 + 3 * s];
-  for (int r = 0; r < 2; ++r) {
-    d.fc[r] = q[15 + 6 * s + 3 * r];
-    d.fx[r] = q[16 + 6 * s + 3 * r];
-    d.fp[r] = q[17 + 6 * s + 3 * r];
-  }
-  return d;
-}
+// Pointer order: csrc/mc_ptrs.cuh.  The luma forms read only index 0 of
+// each plane pair; the frame forms leave the field tuples unread (null).
 
 template <int TH, int TW, int NP, bool FIELD>
 int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
            int bidir, void* stream) {
-  Planes p;
-  for (int k = 0; k < 2; ++k) {
-    p.ref0[k] = (const uint8_t*)ptrs[0 + k];
-    p.ref1[k] = (const uint8_t*)ptrs[2 + k];
-    p.res[k] = (const int16_t*)ptrs[4 + k];
-    p.out[k] = (uint8_t*)ptrs[6 + k];
-  }
-  const DirMeta fm = dir_meta(ptrs, 0), bm = dir_meta(ptrs, 1);
-  const int32_t* modes = (const int32_t*)ptrs[14];
+  const Planes p = mp2v::planes_of(ptrs);
+  const DirMeta fm = mp2v::dir_meta(ptrs, 0), bm = mp2v::dir_meta(ptrs, 1);
+  const int32_t* modes = mp2v::modes_of(ptrs);
   if (n_mb > 0) {
     const dim3 block(TW, TH, NP);
     cudaStream_t s = (cudaStream_t)stream;
@@ -204,11 +168,6 @@ int launch_tile(const void* const* ptrs, int th, int tw, int n_mb, int mbw,
 }
 
 }  // namespace
-
-#define MP2V_MC_ARGS                                                      \
-  const void *const *ptrs, int th, int tw, int n_mb, int mbw, int Hr,     \
-      int Wr, int bidir, void *stream
-#define MP2V_MC_FWD ptrs, th, tw, n_mb, mbw, Hr, Wr, bidir, stream
 
 extern "C" int mp2v_mc_recon_luma(MP2V_MC_ARGS) {
   return launch_tile<1, false>(MP2V_MC_FWD);

@@ -35,9 +35,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = C.c_void_p
 _I = C.c_int
-# length of the pointer array the MC entry points take (csrc/mc_recon.cu):
-# ref0[2], ref1[2], res[2], out[2], sy/sx/ph fwd, sy/sx/ph bwd, mode, then
-# the field tuples (C0, sx0, ph0, C1, sx1, ph1) fwd and bwd
+# length of the pointer array every MC entry point takes (layout in
+# csrc/mc_ptrs.cuh): ref0[2], ref1[2], res[2], out[2], sy/sx/ph fwd,
+# sy/sx/ph bwd, mode, then the field tuples (C0, sx0, ph0, C1, sx1, ph1) fwd
+# and bwd.  The SWAR entry points (K7/K8) take no residual (null) and write
+# their (H, W/4) word plane to out[0].
 MC_PTRS = 27
 # the MC entry points' arguments: the pointer array, tile rows, tile
 # columns, n_mb, mb_width, Hr, Wr, bidir, stream
@@ -49,6 +51,10 @@ _SIGNATURES = {
     "mp2v_mc_recon_uv": _MC,
     "mp2v_mc_field_luma": _MC,
     "mp2v_mc_field_uv": _MC,
+    "mp2v_mc_roll_luma": _MC,
+    "mp2v_mc_roll_uv": _MC,
+    "mp2v_mc_swar": _MC,
+    "mp2v_mc_swar_field": _MC,
 }
 
 _lib = None
@@ -56,6 +62,11 @@ _lib = None
 
 def _sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _inputs() -> list:
+    """Every file a compile reads: the sources and their shared headers."""
+    return _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -72,7 +83,8 @@ def build(force: bool = False) -> str:
     so a concurrent process never loads a half-written library."""
     srcs = _sources()
     if (not force and os.path.exists(LIB)
-            and os.path.getmtime(LIB) > max(map(os.path.getmtime, srcs))):
+            and os.path.getmtime(LIB) > max(map(os.path.getmtime,
+                                                _inputs()))):
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()

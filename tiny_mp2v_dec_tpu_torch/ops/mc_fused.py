@@ -22,12 +22,25 @@ prediction: kernel K4, the field form of K2/K3 (replaces
 are unpadded ``(Hr, Wr)`` uint8; taps beyond them read 0.  A CPU tensor
 takes the plain version (``*_ref``), built from :mod:`.mc`; a CUDA tensor
 takes the kernel; any other device raises.
+
+The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
+:mod:`.recon`) have their kernels here too:
+
+* ``roll``: :func:`fused_mc_recon_roll` (K5, ``csrc/mc_roll.cu``, replaces
+  ``fused_mc_recon``) and :func:`fused_mc_recon_uv_roll` (K6, replaces
+  ``fused_mc_recon_uv``) — K2's and K3's function, frame prediction only,
+  through a window staged in shared memory;
+* ``swar``: :func:`fused_mc_pred_swar` (K7, ``csrc/mc_swar.cu``) and its
+  field form :func:`fused_mc_pred_swar_field` (K8) — the prediction alone,
+  four pixels per 32-bit word (:func:`pack_ref_words`), one component per
+  call, no residual and no coded bit.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .mc import (field_views, gather_windows, gather_windows_fields,
@@ -136,26 +149,161 @@ def fused_mc_recon_uv_ref(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb,
 
 
 # ----------------------------------------------------------------------
+# SWAR words: four pixels per 32-bit word.  Words are held in int32 (the
+# kernels' output) or, in the plain versions, in int64 holding the unsigned
+# value: PyTorch's CPU shifts have no ``torch.uint32`` form.
+
+
+def pack_ref_words(plane):
+    """(H, W) uint8 -> (H, W // 4) int32 words, pixel x at byte x % 4 (least
+    significant first) of word x // 4.  A byte view of the plane (the
+    kernels read the unpadded plane as words the same way)."""
+    return plane.contiguous().view(torch.int32)
+
+
+def unpack_words(words):
+    """(H, W // 4) int32 words -> (H, W) uint8 (inverse of
+    :func:`pack_ref_words`), a byte view."""
+    return words.contiguous().view(torch.uint8)
+
+
+def avg_up(x, y):
+    """Per-byte ``(x + y + 1) >> 1`` of packed words, free of carries
+    across bytes: ``(x | y) - (((x ^ y) >> 1) & 0x7F7F7F7F)``.  The mask
+    also clears what an arithmetic shift of a negative int32 brings in."""
+    return (x | y) - (((x ^ y) >> 1) & 0x7F7F7F7F)
+
+
+def _funnel(lo, hi, s):
+    """Low 32 bits of ``(hi:lo) >> s`` for 0 <= s <= 32 (CUDA's
+    ``__funnelshift_rc``) on int64 words holding unsigned values."""
+    return (lo >> s) | ((hi & ((torch.ones_like(s) << s) - 1)) << (32 - s))
+
+
+def _swar_words(ref):
+    """int64 words of an unpadded (Hr, Wr) plane with one zero word past
+    each row and two zero rows below: every tap the predictions take beyond
+    the plane reads 0 there, as the kernels' bounds checks make it."""
+    words = pack_ref_words(ref).to(torch.int64) & 0xFFFFFFFF
+    return F.pad(words, (0, 1, 0, 2))
+
+
+def _swar_pred(words, row, sx, ph, vs, wpm):
+    """Packed half-pel prediction: (n, h, wpm) int64 words.  ``row``,
+    ``sx``, ``ph``: (n, h) int64 per tile row — the source row of the row's
+    a/b taps (c/d ``vs`` rows below), its first pixel column and its
+    phase.  Each output word funnel-shifts the two source words it
+    straddles, as the kernel does."""
+    cols = (sx >> 2)[..., None] + torch.arange(wpm + 1, device=words.device)
+    s = ((sx & 3) << 3)[..., None]
+
+    def taps(r):
+        win = words[r[..., None], cols]
+        lo, hi = win[..., :-1], win[..., 1:]
+        return _funnel(lo, hi, s), _funnel(lo, hi, s + 8)
+
+    a, b = taps(row)
+    c, d = taps(row + vs)
+    hx = ((ph & 1) != 0)[..., None]
+    hy = ((ph & 2) != 0)[..., None]
+    ab = avg_up(a, b)
+    return torch.where(hx & hy, avg_up(ab, avg_up(c, d)),
+                       torch.where(hx, ab, torch.where(hy, avg_up(a, c), a)))
+
+
+def _swar_dir(ref, sy, sx, ph, fld, mode, h, w):
+    """One direction's packed prediction of every MB: (n, h, w/4) int64.
+    With the field tuple, MBs with mode bit 8 take field prediction: tile
+    row j belongs to unit r = j & 1, whose source row is ``C_r + j`` with
+    taps two rows apart (the row of the unit's own parity, never row -1)."""
+    words = _swar_words(ref)
+    i64 = lambda x: x.to(torch.int64)  # noqa: E731
+    j = torch.arange(h, device=ref.device)
+    per_row = lambda x: i64(x)[:, None].expand(-1, h)  # noqa: E731
+    pred = _swar_pred(words, i64(sy)[:, None] + j, per_row(sx), per_row(ph),
+                      1, w // 4)
+    if fld is not None:
+        odd = (j & 1) != 0
+        unit = lambda x0, x1: torch.where(  # noqa: E731
+            odd, i64(x1)[:, None], i64(x0)[:, None])
+        c0, x0, p0, c1, x1, p1 = fld
+        fpred = _swar_pred(words, unit(c0, c1) + j, unit(x0, x1),
+                           unit(p0, p1), 2, w // 4)
+        pred = torch.where(((mode & 8) != 0)[:, None, None], fpred, pred)
+    return pred
+
+
+def _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f, fld_b,
+              h, w, bidir):
+    Hr, Wr = ref0.shape
+    mbh, mbw = Hr // h, Wr // w
+    f = ((mode & 1) != 0)[:, None, None]
+    pred = _swar_dir(ref0, syf, sxf, phf, fld_f, mode, h, w)
+    if bidir:
+        b = ((mode & 2) != 0)[:, None, None]
+        pb = _swar_dir(ref1, syb, sxb, phb, fld_b, mode, h, w)
+        pred = torch.where(f & b, avg_up(pred, pb),
+                           torch.where(f, pred, torch.where(b, pb, 0)))
+    else:
+        pred = torch.where(f, pred, 0)
+    words = pred.reshape(mbh, mbw, h, w // 4).permute(0, 2, 1, 3).reshape(
+        Hr, Wr // 4)
+    # unsigned 32-bit values -> the int32 of the same bits
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def fused_mc_pred_swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,
+                           *, h: int, w: int, bidir: bool = True):
+    """Plain PyTorch version of K7 on any device: the packed frame
+    prediction of one (Hr, Wr) component, (Hr, Wr // 4) int32 words.  A
+    word formulation (funnel shifts, :func:`avg_up`), beside the unpacked
+    gather of :func:`fused_mc_recon_ref`."""
+    return _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, None,
+                     None, h, w, bidir)
+
+
+def fused_mc_pred_swar_field_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb,
+                                 mode, fld_f, fld_b, *, h: int, w: int,
+                                 bidir: bool = True):
+    """Plain PyTorch version of K8 on any device: K7's words, with field
+    prediction on the MBs whose mode has bit 8."""
+    return _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f,
+                     fld_b, h, w, bidir)
+
+
+# ----------------------------------------------------------------------
 # kernel wrappers
 
+_LUMA = {(16, 16)}
+_CHROMA = {(8, 8), (16, 8), (16, 16)}
 # C entry point -> the (h, w) tiles it is instantiated for
 _TILES = {
-    "mp2v_mc_recon_luma": {(16, 16)},
-    "mp2v_mc_field_luma": {(16, 16)},
-    "mp2v_mc_recon_uv": {(8, 8), (16, 8), (16, 16)},
-    "mp2v_mc_field_uv": {(8, 8), (16, 8), (16, 16)},
+    "mp2v_mc_recon_luma": _LUMA,
+    "mp2v_mc_field_luma": _LUMA,
+    "mp2v_mc_roll_luma": _LUMA,
+    "mp2v_mc_recon_uv": _CHROMA,
+    "mp2v_mc_field_uv": _CHROMA,
+    "mp2v_mc_roll_uv": _CHROMA,
+    # one component per call: luma takes 16x16, which is a chroma tile too
+    "mp2v_mc_swar": _CHROMA,
+    "mp2v_mc_swar_field": _CHROMA,
 }
+# entry points that read the reference planes as 32-bit words
+_WORD_READS = {"mp2v_mc_roll_luma", "mp2v_mc_roll_uv", "mp2v_mc_swar",
+               "mp2v_mc_swar_field"}
 
 
 def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
     """Check the arguments of kernel ``entry`` and launch it on the
-    current stream; returns the output planes."""
+    current stream; returns the output planes: one (H, W) uint8 plane per
+    residual plane, or — for the SWAR kernels, given no residual — the
+    (Hr, Wr // 4) int32 words of the reference planes' whole extent."""
     if (h, w) not in _TILES[entry]:
         raise ValueError(f"{entry}: the kernel takes "
                          f"{sorted(_TILES[entry])} tiles, not {h}x{w}")
-    dev = ress[0].device
+    dev = refs0[0].device
     Hr, Wr = refs0[0].shape
-    H, W = ress[0].shape
+    H, W = ress[0].shape if ress else (Hr, Wr)
     if H % h or W % w:
         raise ValueError(f"{entry}: plane {H}x{W} is not a whole number of "
                          f"{h}x{w} tiles")
@@ -165,6 +313,9 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
                 or tuple(x.shape) != (Hr, Wr) or not x.is_contiguous()):
             raise ValueError(f"{entry}: reference planes must be contiguous "
                              f"({Hr}, {Wr}) uint8 on {dev}")
+        if entry in _WORD_READS and (Wr % 4 or x.data_ptr() % 4):
+            raise ValueError(f"{entry}: reference planes must be 4-byte "
+                             f"aligned with a width divisible by 4")
     if Hr < H or Wr < W:
         raise ValueError(f"{entry}: reference {Hr}x{Wr} smaller than the "
                          f"output {H}x{W}")
@@ -178,9 +329,13 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
                 or tuple(x.shape) != (n_mb,) or not x.is_contiguous()):
             raise ValueError(f"{entry}: per-MB vectors must be contiguous "
                              f"({n_mb},) int32 on {dev}")
-    outs = tuple(torch.empty((H, W), dtype=torch.uint8, device=dev)
-                 for _ in ress)
-    pair = lambda xs: (xs[0].data_ptr(), xs[-1].data_ptr())  # noqa: E731
+    if ress:
+        outs = tuple(torch.empty((H, W), dtype=torch.uint8, device=dev)
+                     for _ in ress)
+    else:
+        outs = (torch.empty((H, W // 4), dtype=torch.int32, device=dev),)
+    pair = lambda xs: (  # noqa: E731
+        (xs[0].data_ptr(), xs[-1].data_ptr()) if xs else (0, 0))
     ptrs = [*pair(refs0), *pair(refs1), *pair(ress), *pair(outs),
             *(x.data_ptr() for x in meta)]
     ptrs += [0] * (_build.MC_PTRS - len(ptrs))
@@ -240,3 +395,65 @@ def fused_mc_recon_uv(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb, mode,
     return _launch(f"mp2v_mc_{form}_uv", f"mc_{form}_uv", tuple(ref0),
                    tuple(ref1), tuple(res),
                    (syf, sxf, phf, syb, sxb, phb, mode, *fld), h, w, bidir)
+
+
+def _frame_only(name, fld_f, fld_b):
+    if fld_f is not None or fld_b is not None:
+        raise ValueError(f"{name}: the roll kernels have no field form "
+                         f"(the mxu and swar kernels have one)")
+
+
+def fused_mc_recon_roll(ref0, ref1, res_plane, syf, sxf, phf, syb, sxb, phb,
+                        mode, fld_f=None, fld_b=None, *, h: int = 16,
+                        w: int = 16, bidir: bool = True):
+    """K2's function, frame prediction, through kernel K5: (H, W) uint8.
+    Its plain version is :func:`fused_mc_recon_ref`, which computes the
+    same function.  Field tuples raise, as the JAX kernel asserts."""
+    _frame_only("fused_mc_recon_roll", fld_f, fld_b)
+    if _device_type("fused_mc_recon_roll", res_plane) == "cpu":
+        return fused_mc_recon_ref(ref0, ref1, res_plane, syf, sxf, phf, syb,
+                                  sxb, phb, mode, h=h, w=w, bidir=bidir)
+    return _launch("mp2v_mc_roll_luma", "mc_roll_luma", (ref0,), (ref1,),
+                   (res_plane,), (syf, sxf, phf, syb, sxb, phb, mode), h, w,
+                   bidir)[0]
+
+
+def fused_mc_recon_uv_roll(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb,
+                           mode, fld_f=None, fld_b=None, *, h: int = 8,
+                           w: int = 8, bidir: bool = True):
+    """K3's function, frame prediction, through kernel K6: (U, V) pairs in
+    and out, planar.  Its plain version is :func:`fused_mc_recon_uv_ref`.
+    Field tuples raise."""
+    _frame_only("fused_mc_recon_uv_roll", fld_f, fld_b)
+    if _device_type("fused_mc_recon_uv_roll", res[0]) == "cpu":
+        return fused_mc_recon_uv_ref(ref0, ref1, res, syf, sxf, phf, syb,
+                                     sxb, phb, mode, h=h, w=w, bidir=bidir)
+    return _launch("mp2v_mc_roll_uv", "mc_roll_uv", tuple(ref0), tuple(ref1),
+                   tuple(res), (syf, sxf, phf, syb, sxb, phb, mode), h, w,
+                   bidir)
+
+
+def fused_mc_pred_swar(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, *,
+                       h: int = 16, w: int = 16, bidir: bool = True):
+    """Packed frame prediction of one (Hr, Wr) component through kernel
+    K7: (Hr, Wr // 4) int32 words (mode bits 1 and 2 only; the caller
+    applies residual and coded mask).  CPU tensors: the plain version."""
+    if _device_type("fused_mc_pred_swar", ref0) == "cpu":
+        return fused_mc_pred_swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb,
+                                      phb, mode, h=h, w=w, bidir=bidir)
+    return _launch("mp2v_mc_swar", "mc_swar", (ref0,), (ref1,), (),
+                   (syf, sxf, phf, syb, sxb, phb, mode), h, w, bidir)[0]
+
+
+def fused_mc_pred_swar_field(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,
+                             fld_f, fld_b, *, h: int = 16, w: int = 16,
+                             bidir: bool = True):
+    """:func:`fused_mc_pred_swar` with field prediction on the MBs whose
+    mode has bit 8, through kernel K8."""
+    if _device_type("fused_mc_pred_swar_field", ref0) == "cpu":
+        return fused_mc_pred_swar_field_ref(ref0, ref1, syf, sxf, phf, syb,
+                                            sxb, phb, mode, fld_f, fld_b,
+                                            h=h, w=w, bidir=bidir)
+    return _launch("mp2v_mc_swar_field", "mc_swar_field", (ref0,), (ref1,),
+                   (), (syf, sxf, phf, syb, sxb, phb, mode, *fld_f, *fld_b),
+                   h, w, bidir)[0]

@@ -18,10 +18,16 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
    (``field_support=True``), their field form K4; the reference list is
    updated on the host, where picture types are known.
 
+The MC kernels are those of the JAX package's ``mc_impl`` (see
+:func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
+(frame prediction), ``swar`` K7/K8 (packed prediction per component).
+
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -30,8 +36,30 @@ from ..headers import CHROMA_420
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from .idct import idct_blocks
-from .mc_fused import (fused_mc_recon, fused_mc_recon_uv, mc_field_meta,
-                       mc_meta)
+from .mc_fused import (fused_mc_pred_swar, fused_mc_pred_swar_field,
+                       fused_mc_recon, fused_mc_recon_ref,
+                       fused_mc_recon_roll, fused_mc_recon_uv,
+                       fused_mc_recon_uv_ref, fused_mc_recon_uv_roll,
+                       mc_field_meta, mc_meta, unpack_words)
+
+MC_IMPLS = ("mxu", "roll", "swar")
+
+
+def resolve_mc_impl(mc_impl: str | None, field_support: bool) -> str:
+    """The MC implementation a recon runs, by the JAX package's rule:
+    ``None`` takes ``MP2V_MC_IMPL`` (default ``"mxu"``), and a ``roll``
+    that came from the environment becomes ``mxu`` under field support,
+    since the roll kernels have no field form.  The variable is read here,
+    when a recon is built — not once at import, as the JAX package reads
+    it — so that one process can build recons of each implementation."""
+    impl = mc_impl if mc_impl is not None else os.environ.get(
+        "MP2V_MC_IMPL", "mxu")
+    if impl not in MC_IMPLS:
+        raise ValueError(f"MC implementation {impl!r}: not one of "
+                         f"{MC_IMPLS}")
+    if field_support and impl == "roll" and mc_impl is None:
+        return "mxu"
+    return impl
 
 
 def _tiles_from_blocks(blocks, rows, cols, interleave_mask):
@@ -128,15 +156,30 @@ def _ladder(n: int, lo: int = 2048) -> int:
 class DeviceRecon:
     """Per-geometry reconstruction of one picture from its residual blocks.
 
-    ``field_support=False`` takes the frame-prediction kernels K2/K3 and
-    ignores field motion; ``True`` takes their field form K4, which
-    predicts each MB frame- or field-based by its field_pred flag."""
+    ``field_support=False`` takes the frame-prediction kernels (K2/K3,
+    K5/K6 or K7) and ignores field motion; ``True`` takes a field form (K4
+    or K8), which predicts each MB frame- or field-based by its field_pred
+    flag.  ``mc_impl`` as :func:`resolve_mc_impl`.  An explicit ``"roll"``
+    with field support has no kernel: the JAX package takes its XLA gather
+    path there; the port takes the plain version on the CPU and raises on
+    any other device rather than run it on the card."""
 
     def __init__(self, geom: PictureGeometry, device,
-                 field_support: bool = False):
+                 field_support: bool = False, mc_impl: str | None = None):
         self.geom = geom
         self.device = torch.device(device)
         self.field_support = field_support
+        self.mc_impl = resolve_mc_impl(mc_impl, field_support)
+        # (luma, U+V) reconstruction functions; swar predicts per component
+        self._mc_fns = {
+            "mxu": (fused_mc_recon, fused_mc_recon_uv),
+            "roll": (fused_mc_recon_roll, fused_mc_recon_uv_roll),
+            "swar": None}[self.mc_impl]
+        if self.mc_impl == "roll" and field_support:
+            if self.device.type != "cpu":
+                raise ValueError("mc_impl='roll' has no field-prediction "
+                                 "kernel; use 'mxu' or 'swar'")
+            self._mc_fns = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mb_y, mb_x = np.divmod(np.arange(geom.n_mb), geom.mb_width)
 
@@ -179,13 +222,17 @@ class DeviceRecon:
         """Fused-kernel reconstruction: per component, the int16 residual in
         plane layout, then one launch for luma and one for U and V together
         (MC, bidir average, residual add, saturation and uncoded masking):
-        K2 and K3, or K4 under field support."""
+        K2 and K3, or K4 under field support; K5 and K6 under ``roll``.
+        Under ``swar``, one prediction launch per component (K7, or K8
+        under field support) and a plain PyTorch epilogue."""
         geom = self.geom
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mbh, mbw = geom.mb_height, geom.mb_width
         fs = self.field_support
-        mode = (fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
-                + 4 * coded.to(torch.int32))
+        swar = self.mc_impl == "swar"
+        mode = fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
+        if not swar:
+            mode = mode + 4 * coded.to(torch.int32)
         if fs:
             mode = mode + 8 * field_pred.to(torch.int32)
 
@@ -204,17 +251,40 @@ class DeviceRecon:
 
         # window-start clamps are in full-reference coordinates
         Hr, Wr = mbh * 16, mbw * 16
-        luma = fused_mc_recon(
+        ch, cw = 16 >> ys, 16 >> xs
+        mvc = _scale_mv(mv, geom.chroma_format)
+        if swar:
+            pred_fn = fused_mc_pred_swar_field if fs else fused_mc_pred_swar
+
+            def component(c, pos, mvs, h, w):
+                H, W = mbh * h, mbw * w
+                predw = pred_fn(refs[c][0], refs[c][1],
+                                *meta(pos, mvs, H, W, h, w), h=h, w=w,
+                                bidir=bidir)
+                # the uncoded-MB mask rides the residual: -256 saturates to
+                # 0 after the clip (int16 arithmetic, as the JAX epilogue)
+                coded_px = coded.reshape(mbh, 1, mbw, 1).expand(
+                    mbh, h, mbw, w).reshape(H, W)
+                res2 = torch.where(coded_px,
+                                   _plane_from_tiles(res[c], mbh, mbw, h, w),
+                                   -256)
+                pred = unpack_words(predw).to(torch.int16)
+                return torch.clamp(pred + res2, 0, 255).to(torch.uint8)
+
+            return (component(0, self._pos[0], mv, 16, 16),
+                    component(1, self._pos[1], mvc, ch, cw),
+                    component(2, self._pos[1], mvc, ch, cw))
+        luma_fn, uv_fn = self._mc_fns
+        luma = luma_fn(
             refs[0][0], refs[0][1], _plane_from_tiles(res[0], mbh, mbw, 16, 16),
             *meta(self._pos[0], mv, Hr, Wr, 16, 16), h=16, w=16, bidir=bidir)
         # chroma: U and V share the scaled MVs (planar, so no doubled sx)
-        ch, cw = 16 >> ys, 16 >> xs
-        u, v = fused_mc_recon_uv(
+        u, v = uv_fn(
             (refs[1][0], refs[2][0]), (refs[1][1], refs[2][1]),
             (_plane_from_tiles(res[1], mbh, mbw, ch, cw),
              _plane_from_tiles(res[2], mbh, mbw, ch, cw)),
-            *meta(self._pos[1], _scale_mv(mv, geom.chroma_format),
-                  Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw, bidir=bidir)
+            *meta(self._pos[1], mvc, Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw,
+            bidir=bidir)
         return luma, u, v
 
     def zero_planes(self):
@@ -229,16 +299,17 @@ class DeviceRecon:
 class GopRecon:
     """A chunk of pictures decoded from one uploaded blob (see the module
     docstring).  ``chunk=1`` is the per-picture latency path.
-    ``field_support`` selects the metadata form and the kernels (see
-    :class:`DeviceRecon`); a frame-prediction recon refuses field-predicted
-    MBs, whose second-unit vectors its 5-column metadata would drop."""
+    ``field_support`` selects the metadata form and, with ``mc_impl``, the
+    kernels (see :class:`DeviceRecon`); a frame-prediction recon refuses
+    field-predicted MBs, whose second-unit vectors its 5-column metadata
+    would drop."""
 
     def __init__(self, geom: PictureGeometry, chunk: int, device,
-                 field_support: bool = False):
+                 field_support: bool = False, mc_impl: str | None = None):
         self.geom = geom
         self.chunk = chunk
         self.device = torch.device(device)
-        self.inner = DeviceRecon(geom, self.device, field_support)
+        self.inner = DeviceRecon(geom, self.device, field_support, mc_impl)
         self._cols = meta2_cols(field_support)
         # within-picture dense-grid index fits uint16 for every geometry up
         # to ~2.7K-wide video; 0xFFFF is the padding sentinel

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import headers as H
-from ..ops.recon import GopRecon
+from ..ops.recon import GopRecon, resolve_mc_impl
 from ..tokenizer import get_tokenizer
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureParams
 
@@ -173,13 +173,16 @@ class MP2VDecoder:
     # ------------------------------------------------------------------
     def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
                        size: int) -> GopRecon:
-        """The recon of one geometry, metadata form and chunk size.  A
-        frame recon and a field recon of one geometry share the reference
-        planes: both are ``(y, u, v)`` tuples of the padded sizes."""
-        key = (geom, field_support, size)
+        """The recon of one geometry, metadata form, chunk size and MC
+        implementation (``MP2V_MC_IMPL``, resolved as the JAX package
+        resolves it: :func:`~..ops.recon.resolve_mc_impl`).  Recons of one
+        geometry share the reference planes: all are ``(y, u, v)`` tuples
+        of the padded sizes."""
+        impl = resolve_mc_impl(None, field_support)
+        key = (geom, field_support, size, impl)
         if key not in self._recons:
             self._recons[key] = GopRecon(geom, size, self.device,
-                                         field_support)
+                                         field_support, impl)
         return self._recons[key]
 
     def _emit(self, pending: LazyFrame) -> None:
@@ -293,9 +296,9 @@ class MP2VDecoder:
     def _run_chunk(self, batch) -> None:
         """Prepare, upload and reconstruct one chunk of ``batch`` =
         [(tokens, geom, header), ...], then route its frames.  A chunk
-        with any field-predicted MB takes the field recon (K4), as the JAX
-        package's ``_flush_chunk`` chooses; the latency path decides per
-        picture."""
+        with any field-predicted MB takes the field recon (K4, or K8 under
+        ``MP2V_MC_IMPL=swar``), as the JAX package's ``_flush_chunk``
+        chooses; the latency path decides per picture."""
         geom = batch[0][1]
         pcts = [ph.picture_coding_type for _, _, ph in batch]
         size = self.config.gop_chunk or 1

@@ -10,12 +10,14 @@ with ``gop_chunk=16`` on ``cuda``:
 * stages: the decoder's own path taken apart, with a device synchronize
   after each stage — tokenize (host), prepare (host), upload, decode_blob
   (pairs -> rows, K1, dense grid), and the per-picture reconstruction loop
-  (residual layout, mc_meta / mc_field_meta, K2 + K3 or K4, packing);
+  (residual layout, mc_meta / mc_field_meta, the MC kernels, packing);
 * profiler: one unsynchronized decode under ``torch.profiler``, device
   time summed by kernel name, and the device's busy share of the wall.
 
-Prints one JSON object and writes it to ``--out`` (by default
-``chiprun_out/profile_torch_decode_<fixture>.json``).  Needs a CUDA
+The MC kernels are those of ``MP2V_MC_IMPL`` (``mxu``, the default: K2 +
+K3 or K4; ``roll``: K5 + K6; ``swar``: K7 or K8).  Prints one JSON object
+and writes it to ``--out`` (by default
+``chiprun_out/profile_torch_decode_<fixture>_<impl>.json``).  Needs a CUDA
 device.
 """
 from __future__ import annotations
@@ -71,8 +73,9 @@ def main() -> int:
     ap.add_argument("--out")
     args = ap.parse_args()
     name = os.path.splitext(os.path.basename(args.fixture))[0]
+    impl = os.environ.get("MP2V_MC_IMPL", "mxu")
     out_path = args.out or os.path.join(
-        REPO, "chiprun_out", f"profile_torch_decode_{name}.json")
+        REPO, "chiprun_out", f"profile_torch_decode_{name}_{impl}.json")
 
     import torch
     if not torch.cuda.is_available():
@@ -108,15 +111,21 @@ def main() -> int:
         dec.decode(data)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    # self device time: each kernel's own duration, counted once
+    # device-side rows only (kernels, memcpys): a CPU op's row carries the
+    # time of the kernels it launched too, which would count them twice
+    from torch.autograd import DeviceType
     kernels = {a.key[:80]: [a.self_device_time_total / 1e3, a.count]
-               for a in prof.key_averages() if a.self_device_time_total > 0}
+               for a in prof.key_averages()
+               if a.device_type != DeviceType.CPU
+               and a.self_device_time_total > 0}
     busy_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
 
     med = lambda xs: statistics.median(xs)  # noqa: E731
     out = {
         "fixture": name,
+        # the implementations of the recons the decodes built
+        "mc_impl": sorted({key[3] for key in dec._recons}),
         "card": torch.cuda.get_device_name(0),
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
