@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes a 1080-line chunk gives it, with ``bidir`` True and False,
    compared with its plain PyTorch version on the same inputs — exact
    equality, as all arithmetic is integer — and timed against it (device
-   time per call, see :func:`cuda_ms`);
+   time per call, see :func:`cuda_ms`); then K9 and K10 (the MC profiler's
+   whole-plane prediction, bytes and 4-pixel words) at the profiler's
+   1080p inputs and again with every window at the bottom and right edges;
 4. end to end, five paths through ``MP2VDecoder`` on ``cuda``: a
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
@@ -30,14 +32,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``swar`` (K1, K8).  Each path must launch its kernels exactly as often
    as :data:`PATHS` says and no MC kernel of another implementation, and
    each YUV sha256 must equal the one recorded from the JAX package (the
-   ``.json`` beside each stream); then warm decode frames/s of each.
+   ``.json`` beside each stream); then warm decode frames/s of each;
+5. the MC profiler and the kernel gate: the parity run of
+   ``tools/profile_mc_variants.py`` (variants b, c = K9 and d = K10 equal
+   to a), with the launch counts reset just before and read just after —
+   exactly one launch each of K9 and K10 and of no other kernel — then
+   gates 1 and 2 of ``tools/perf_gate.py``, which must pass.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last is the kernels' JSON record: per kernel its
+launches on its path, its error and device time against its plain
+version, and its bound (:func:`bound`); the last line is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
+import importlib.util
 import json
 import os
 import statistics
@@ -63,6 +74,17 @@ PATHS = {
 }
 MC_KERNELS = {k for counts in PATHS.values() for k in counts} - {"idct8x8"}
 TIMED_RUNS = 20
+# the card's peaks for the bound (H100 SXM data sheet): HBM bytes and
+# non-tensor arithmetic per ms; the data sheet lists no rate for integer
+# arithmetic outside the tensor cores, so it counts at the float32 one
+HBM_BYTES_PER_MS = 3.35e9
+OPS_PER_MS = 67e9
+# integer operations per output element (pixel, word or coefficient),
+# counted on the plain versions' arithmetic at the costliest phase: a
+# half-pel average is 3, an MPEG clip 2; the IDCT's two butterfly passes
+# about 24 each per coefficient
+OPS_PER_OUT = {"idct8x8": 50, "recon": 27, "swar": 17, "mc_row": 10,
+               "mc_row_packed": 10}
 # warm decodes per path: the two mxu paths 5, the others 3 (time limit)
 DECODE_RUNS = {"mxu": 5, "roll": 3, "swar": 3}
 # (label, tile, plane rows, plane columns) of each plane a kernel takes
@@ -76,47 +98,49 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-_CYCLES_PER_MS = []
-
-
-def _sleep_cycles_per_ms(torch) -> float:
-    """GPU clock cycles per millisecond of ``torch.cuda._sleep``, timed once
-    with CUDA events."""
-    if not _CYCLES_PER_MS:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(10_000_000)
-        end.record()
-        end.synchronize()
-        _CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
-    return _CYCLES_PER_MS[0]
+@functools.lru_cache(maxsize=None)
+def _tbench():
+    """This checkout's ``tiny_mp2v_dec_tpu_torch/tools/tbench.py``, loaded
+    by path: ``tools/ab_kernel_times.py`` times other checkouts' kernels
+    through :func:`cuda_ms`, and those may not have the module."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_tbench", os.path.join(PACKAGE, "tools", "tbench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cuda_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Device milliseconds per call of ``fn``: ``runs`` calls back to back
-    between two CUDA events, queued behind a GPU sleep that outlasts the
-    host's enqueue of all of them, so that the host's per-call work (the
-    wrapper's checks, ``ctypes``, allocation) does not show as device
-    time; the mean over the runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    torch.cuda.synchronize()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # generous: the sleep ends before the start event, so it costs no time
-    torch.cuda._sleep(int((4 * enqueue_ms + 10) * _sleep_cycles_per_ms(torch)))
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
+    """Device milliseconds per call of ``fn``: ``tbench.cuda_ms`` (calls
+    queued behind a GPU sleep that outlasts their enqueue, timed by CUDA
+    events; the mean over ``runs``)."""
+    return _tbench().cuda_ms(fn, runs, warmup)
+
+
+def bound(tensors_in, tensors_out, ops_per_out: int,
+          read_bytes: int = 0) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input tensor read once, each output written once, plus
+    ``read_bytes`` of inputs of which only part is needed, counted by the
+    caller) over the memory rate and its operations (``ops_per_out`` per
+    output element) over the arithmetic rate.  No PyTorch call computes
+    any of these bit-exact integer functions, so ``library_ms`` is null."""
+    nbytes = read_bytes + sum(t.numel() * t.element_size()
+                              for t in (*tensors_in, *tensors_out))
+    ops = ops_per_out * sum(t.numel() for t in tensors_out)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_MS, ops / OPS_PER_MS
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None}
+
+
+def tensors(nest):
+    """The tensors of a nest of tuples and lists, in order."""
+    for x in nest:
+        if isinstance(x, (tuple, list)):
+            yield from tensors(x)
+        else:
+            yield x
 
 
 def max_abs_err(torch, got, ref) -> int:
@@ -141,7 +165,8 @@ def check_idct(torch, np, rng):
     plain_ms = cuda_ms(torch, lambda: idct_blocks_ref(x))
     print(f"K1 idct8x8: {len(coeffs)} blocks, equal to plain; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound((x,), (got,), OPS_PER_OUT["idct8x8"])}
 
 
 def mc_inputs(torch, np, rng, H, W, th, tw, field):
@@ -238,7 +263,9 @@ def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
         print(f"{name} bidir={bidir}: {planes}{H}x{W} in {th}x{tw} tiles, "
               f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if bidir:   # the record carries the B-picture (bidir) form
-            out = {"ms": ms, "plain_ms": plain_ms}
+            out = {"ms": ms, "plain_ms": plain_ms, **bound(
+                list(tensors((args, meta))), (got,),
+                OPS_PER_OUT["swar" if impl == "swar" else "recon"])}
         out["max_abs_err"] = max(out.get("max_abs_err", 0), err)
     return out
 
@@ -253,9 +280,107 @@ def check_tiles(torch, np, rng, name, planes, main, **kw):
             for label, tile, H, W in planes}
     rec = dict(recs[main])
     rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
-    rec["tiles"] = {label: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+    rec["tiles"] = {label: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
                     for label, r in recs.items()}
     return rec
+
+
+def window_bytes(torch, sy, sx, ph, H, W, word: int = 1) -> int:
+    """Bytes of a padded plane that the MBs' prediction windows need, read
+    in units of ``word`` bytes (a unit counts whole when any of its bytes
+    is needed): per MB the 16x16 pixels at the clamped start ``(sy, sx)``,
+    the row below under a vertical half-pel phase (``ph`` bit 1) and the
+    column to the right under a horizontal one (bit 0).  The union over
+    all MBs: what this run's vectors need read, however wide the padding
+    is."""
+    sy = torch.clamp(sy.to(torch.int64), 0, H - 16)[:, None]
+    sx = torch.clamp(sx.to(torch.int64), 0, W - 16)[:, None]
+    ph = ph.to(torch.int64)[:, None]
+    r = torch.arange(17, device=sy.device)
+    # an unneeded 17th tap repeats the first, which the union ignores
+    rows = torch.where(r < 16 + ((ph >> 1) & 1), sy + r, sy)
+    cols = torch.where(r < 16 + (ph & 1), sx + r, sx) // word
+    need = torch.zeros((H + 1, (W + word) // word), dtype=torch.bool,
+                       device=sy.device)
+    need[rows[:, :, None], cols[:, None, :]] = True
+    return int(need.sum()) * word
+
+
+def check_rows(torch):
+    """K9 and K10 against their plain versions on the MC profiler's 1080p
+    inputs, and again with every MB's window at the bottom edge, the right
+    edge or both (the +1 taps in the zero padding) at every phase.  The
+    words of K10 are compared as words, its error read on the pixels.
+    Returns the two records, timed on the profiler's inputs."""
+    from types import SimpleNamespace
+
+    from tiny_mp2v_dec_tpu_torch.ops import mc_rows
+    from tiny_mp2v_dec_tpu_torch.ops.mc_fused import unpack_words
+    from tiny_mp2v_dec_tpu_torch.tools.profile_mc_variants import make_inputs
+    x = make_inputs(device="cuda")
+    i = torch.arange(x.sy.numel(), device=x.sy.device, dtype=torch.int32)
+    edge = SimpleNamespace(**vars(x))
+    edge.sy = torch.where(i % 3 != 1, x.H - 16, x.sy)
+    edge.sx = torch.where(i % 3 != 0, x.W - 16, x.sx)
+    edge.sxq, edge.rb, edge.ph = edge.sx >> 2, edge.sx & 3, (i // 3) % 4
+    forms = {  # name: (kernel, wrapper, plain version, inputs, unpack)
+        "mc_row": ("K9", mc_rows.mc_row_pred, mc_rows.mc_row_pred_ref,
+                   ("plane_pad", "sy", "sx", "ph"), None),
+        "mc_row_packed": ("K10", mc_rows.mc_row_pred_packed,
+                          mc_rows.mc_row_pred_packed_ref,
+                          ("plane32", "sy", "sxq", "rb", "ph"), unpack_words),
+    }
+    recs = {}
+    for name, (k, fn, ref_fn, names, unpack) in forms.items():
+        err = 0
+        for label, v in (("profiler inputs", x), ("edge starts", edge)):
+            args = [getattr(v, a) for a in names]
+            got = fn(*args, H=x.H, W=x.W)
+            ref = ref_fn(*args, H=x.H, W=x.W)
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, *((unpack(got), unpack(ref)) if unpack
+                                     else (got, ref)))
+            if e or not torch.equal(got, ref):
+                fail(f"{k} {name} on the {label} differs from its plain "
+                     f"version (max abs err {e})")
+            err = max(err, e)
+        args = [getattr(x, a) for a in names]
+        ms = cuda_ms(torch, lambda: fn(*args, H=x.H, W=x.W))
+        plain_ms = cuda_ms(torch, lambda: ref_fn(*args, H=x.H, W=x.W))
+        print(f"{k} {name}: {x.H}x{x.W} from a {tuple(args[0].shape)} "
+              f"plane, equal to plain (edge starts too); kernel {ms:.4f} ms,"
+              f" plain {plain_ms:.4f} ms")
+        # the plane counts by the bytes the windows need, not its padding
+        read = window_bytes(torch, x.sy, x.sx, x.ph, x.H, x.W,
+                            1 if unpack is None else 4)
+        recs[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      **bound(args[1:], (got,), OPS_PER_OUT[name], read)}
+    return recs
+
+
+def profiler_and_gates(torch, _build):
+    """Phase 5: the MC profiler's parity run with the launch counts reset
+    just before and read just after, then gates 1 and 2.  Returns the
+    parity run's launches."""
+    from tiny_mp2v_dec_tpu_torch.tools import perf_gate
+    from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv
+    x = pmv.make_inputs(device="cuda")
+    _build.LAUNCHES.clear()
+    parity = pmv.parity(x)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"profile_mc_variants parity vs variant a: {parity}; launches "
+          f"{launches}")
+    if not all(parity.values()):
+        fail(f"MC profiler: a variant differs from variant a: {parity}")
+    if launches != {"mc_row": 1, "mc_row_packed": 1}:
+        fail(f"MC profiler: launches {launches}, expected one each of "
+             f"mc_row and mc_row_packed")
+    rec = perf_gate.run_gates()
+    print(f"perf_gate: {json.dumps(rec)}")
+    if not rec["pass"]:
+        fail(f"perf_gate failed: {rec}")
+    return launches
 
 
 def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
@@ -381,6 +506,7 @@ def main() -> int:
         "mc_swar_field": check_tiles(torch, np, rng, "K8 mc_swar_field",
                                      LUMA + CHROMA, "luma", uv=False,
                                      field=True, impl="swar"),
+        **check_rows(torch),
     }
 
     # 4) end to end through the decoder's entry point, one path at a time
@@ -390,6 +516,9 @@ def main() -> int:
                                 name, impl, expected)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+
+    # 5) the MC profiler (K9, K10) and the kernel gate
+    launches.update(profiler_and_gates(torch, _build))
 
     csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"
@@ -403,6 +532,8 @@ def main() -> int:
         "mc_roll_uv": ("mc_roll.cu", f"{mcp}:245"),
         "mc_swar": ("mc_swar.cu", f"{mcp}:769"),
         "mc_swar_field": ("mc_swar.cu", f"{mcp}:805"),
+        "mc_row": ("mc_rows.cu", "tools/profile_mc_variants.py:88"),
+        "mc_row_packed": ("mc_rows.cu", "tools/profile_mc_variants.py:206"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": csrc + sources[name][0],

@@ -1,5 +1,6 @@
-"""The kernel build (``ops/_build.py``) with a stand-in ``nvcc``, and the
-summary of ``tools/ab_kernel_times.py``: both run without a card."""
+"""The kernel build (``ops/_build.py``) with a stand-in ``nvcc``, the
+summary of ``tools/ab_kernel_times.py`` and the port's copy of the C++
+tokenizer: all run without a card."""
 import os
 import stat
 import subprocess
@@ -73,3 +74,19 @@ def test_ab_summary_counts_pairs():
     assert s["k"]["change_median"] == 1.75
     assert s["k"]["change_wins"] == 3 and s["k"]["pairs"] == 4
     assert s["k"]["parent_iqr"] == pytest.approx(13.5 - 8.5)
+
+
+@pytest.mark.parametrize("name", ["tokenizer.cpp", "vlc_tables.inc"])
+def test_tokenizer_sources_are_the_jax_packages(name):
+    """The port builds its own copy of the C++ tokenizer; each file equals
+    the JAX package's byte for byte, so the two cannot drift."""
+    from tiny_mp2v_dec_tpu_torch.tokenizer import build as tok_build
+    port = os.path.join(tok_build.CSRC, name)
+    assert os.path.dirname(os.path.dirname(port)) == os.path.dirname(
+        os.path.abspath(tok_build.__file__))
+    assert {tok_build.SRC, tok_build.INC} == {
+        os.path.join(tok_build.CSRC, n)
+        for n in ("tokenizer.cpp", "vlc_tables.inc")}
+    with open(port, "rb") as f, open(os.path.join(
+            REPO, "tiny_mp2v_dec_tpu", "tokenizer", "csrc", name), "rb") as g:
+        assert f.read() == g.read()

@@ -1,7 +1,8 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version (K3, K4, K6, K7 and K8 at the chroma tile of every format),
-and both 1080-line fixtures decoded through the kernels of each
-``MP2V_MC_IMPL``.
+PyTorch version (K3, K4, K6, K7 and K8 at the chroma tile of every format,
+K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
+fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
+profiler's parity run and the kernel gate.
 
 These tests skip where torch finds no CUDA device.  The file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine that has
@@ -277,3 +278,60 @@ def test_roll_with_field_support_refused_on_cuda():
     geom = PictureGeometry(width=32, height=32, chroma_format=1)
     with pytest.raises(ValueError, match="roll"):
         DeviceRecon(geom, dev, field_support=True, mc_impl="roll")
+
+
+def _rows_inputs(edge):
+    """The MC profiler's 1080p inputs on the card; with ``edge`` every MB's
+    window at the bottom edge, the right edge or both, at every phase."""
+    from tiny_mp2v_dec_tpu_torch.tools.profile_mc_variants import make_inputs
+    x = make_inputs(device="cuda")
+    if edge:
+        i = torch.arange(x.sy.numel(), device="cuda", dtype=torch.int32)
+        x.sy = torch.where(i % 3 != 1, x.H - 16, x.sy)
+        x.sx = torch.where(i % 3 != 0, x.W - 16, x.sx)
+        x.sxq, x.rb, x.ph = x.sx >> 2, x.sx & 3, (i // 3) % 4
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [False, True])
+def test_mc_row_kernels_match_plain(edge):
+    """K9 and K10 against their plain versions at the profiler's shapes:
+    the (1120, 2048) byte plane and the (1120, 640) word plane."""
+    _require_cuda()
+    from tiny_mp2v_dec_tpu_torch.ops import mc_rows
+    x = _rows_inputs(edge)
+    before = dict(_build.LAUNCHES)
+    got = mc_rows.mc_row_pred(x.plane_pad, x.sy, x.sx, x.ph, H=x.H, W=x.W)
+    gotw = mc_rows.mc_row_pred_packed(x.plane32, x.sy, x.sxq, x.rb, x.ph,
+                                      H=x.H, W=x.W)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_row"] == before.get("mc_row", 0) + 1
+    assert (_build.LAUNCHES["mc_row_packed"]
+            == before.get("mc_row_packed", 0) + 1)
+    want = mc_rows.mc_row_pred_ref(x.plane_pad, x.sy, x.sx, x.ph, H=x.H,
+                                   W=x.W)
+    assert torch.equal(got, want)
+    assert gotw.dtype == torch.int32 and gotw.shape == (x.H, x.W // 4)
+    assert torch.equal(gotw, mc_rows.mc_row_pred_packed_ref(
+        x.plane32, x.sy, x.sxq, x.rb, x.ph, H=x.H, W=x.W))
+    assert torch.equal(mc_fused.unpack_words(gotw), want)
+
+
+@pytest.mark.cuda
+def test_profiler_parity_launches_each_row_kernel_once():
+    _require_cuda()
+    from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv
+    x = pmv.make_inputs(device="cuda")
+    _build.LAUNCHES.clear()
+    assert pmv.parity(x) == {"b": True, "c": True, "d": True}
+    assert dict(_build.LAUNCHES) == {"mc_row": 1, "mc_row_packed": 1}
+
+
+@pytest.mark.cuda
+def test_perf_gate_passes():
+    _require_cuda()
+    from tiny_mp2v_dec_tpu_torch.tools import perf_gate
+    rec = perf_gate.run_gates()
+    assert rec["mc_equal"] and rec["chunk_equal"], rec
+    assert rec["pass"], rec

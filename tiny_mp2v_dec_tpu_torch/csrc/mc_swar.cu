@@ -12,15 +12,10 @@
 //
 // Output word (y, wx) of the (H, W/4) plane holds pixels 4wx .. 4wx+3, the
 // first at the least significant byte.  Its MB is i = (y / h) * mbw +
-// wx / (w/4); with k = wx % (w/4) it reads, per tap row, the two aligned
-// reference words lo, hi at word column (sx >> 2) + k, and
-//   a = __funnelshift_rc(lo, hi, 8 * (sx & 3))       pixels sx+4k ..
-//   b = __funnelshift_rc(lo, hi, 8 * (sx & 3) + 8)   pixels sx+4k+1 ..
-// (5 bytes from an offset of at most 3 always lie in the 2 words, and _rc
-// clamps the shift of 32 to hi).  c and d come the same way from the row
-// below (two rows below for field prediction).  __vavgu4 is the per-byte
-// (x+y+1)>>1 of MPEG-2's rounding, so the phase select and the bidir
-// average stay packed: avg(avg(a,b), avg(c,d)) is the exact 2-D chain.
+// wx / (w/4), and it is word k = wx % (w/4) of the MB's tile row: the
+// funnel-shift taps and per-byte averages of csrc/swar_word.cuh, with c
+// and d from the row below (two rows below for field prediction).  The
+// bidir average stays packed too (__vavgu4).
 // Mode bit 1 = forward, 2 = backward (bidir form only); neither gives 0.
 // No residual and no coded bit: the caller adds the residual and masks
 // uncoded MBs (ops/recon.py), as the JAX package's XLA epilogue does.
@@ -43,36 +38,12 @@
 #include <stdint.h>
 
 #include "mc_ptrs.cuh"
+#include "swar_word.cuh"
 
 namespace {
 
 using mp2v::DirMeta;
-
-__device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ ref,
-                                            int Hr, int nw, int y, int x) {
-  return (y < Hr && x < nw) ? ref[(long long)y * nw + x] : 0u;
-}
-
-// Word k of a unidirectional packed prediction whose a/b taps are on row y
-// and c/d taps `vs` rows below; (y, sx) >= 0.
-__device__ __forceinline__ uint32_t halfpel_word(
-    const uint32_t* __restrict__ ref, int Hr, int nw, int y, int sx, int k,
-    int ph, int vs) {
-  const int x = (sx >> 2) + k;
-  const unsigned s = (unsigned)(sx & 3) << 3;
-  const uint32_t lo = word_at(ref, Hr, nw, y, x);
-  const uint32_t hi = word_at(ref, Hr, nw, y, x + 1);
-  const uint32_t a = __funnelshift_rc(lo, hi, s);
-  if ((ph & 3) == 0) return a;
-  if ((ph & 3) == 1) return __vavgu4(a, __funnelshift_rc(lo, hi, s + 8));
-  const uint32_t lo2 = word_at(ref, Hr, nw, y + vs, x);
-  const uint32_t hi2 = word_at(ref, Hr, nw, y + vs, x + 1);
-  const uint32_t c = __funnelshift_rc(lo2, hi2, s);
-  if ((ph & 3) == 2) return __vavgu4(a, c);
-  const uint32_t b = __funnelshift_rc(lo, hi, s + 8);
-  const uint32_t d = __funnelshift_rc(lo2, hi2, s + 8);
-  return __vavgu4(__vavgu4(a, b), __vavgu4(c, d));
-}
+using mp2v::halfpel_word;
 
 template <bool FIELD>
 __device__ __forceinline__ uint32_t predict(const uint32_t* __restrict__ ref,

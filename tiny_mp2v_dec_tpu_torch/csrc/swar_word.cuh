@@ -1,0 +1,50 @@
+// One 4-pixel word of a packed half-pel prediction, shared by the SWAR
+// kernels K7/K8 (csrc/mc_swar.cu) and K10 (csrc/mc_rows.cu).
+//
+// A word holds pixels 4x .. 4x+3 of a row, the first at the least
+// significant byte.  Word k of a prediction whose first pixel column is sx
+// reads the two aligned words lo, hi at word column (sx >> 2) + k:
+//   a = __funnelshift_rc(lo, hi, 8 * (sx & 3))       pixels sx+4k ..
+//   b = __funnelshift_rc(lo, hi, 8 * (sx & 3) + 8)   pixels sx+4k+1 ..
+// (5 bytes from an offset of at most 3 always lie in the 2 words, and _rc
+// clamps the shift of 32 to hi, so sx & 3 == 0 needs no branch).  c and d
+// come the same way from the row `vs` below.  The shifts are unsigned: no
+// sign bit is ever copied into a byte.  __vavgu4 is the per-byte
+// (x + y + 1) >> 1 of MPEG-2's rounding, so the phase select stays packed:
+// avg(avg(a, b), avg(c, d)) is the exact 2-D chain.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mp2v {
+
+// Word (y, x) of an (Hr, nw) word plane; 0 at or past either edge.
+__device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ ref,
+                                            int Hr, int nw, int y, int x) {
+  return (y < Hr && x < nw) ? ref[(long long)y * nw + x] : 0u;
+}
+
+// Word k of a unidirectional packed prediction whose a/b taps are on row y
+// and c/d taps `vs` rows below, with phase ph (bit 0 horizontal, bit 1
+// vertical); (y, sx) >= 0.
+__device__ __forceinline__ uint32_t halfpel_word(
+    const uint32_t* __restrict__ ref, int Hr, int nw, int y, int sx, int k,
+    int ph, int vs) {
+  const int x = (sx >> 2) + k;
+  const unsigned s = (unsigned)(sx & 3) << 3;
+  const uint32_t lo = word_at(ref, Hr, nw, y, x);
+  const uint32_t hi = word_at(ref, Hr, nw, y, x + 1);
+  const uint32_t a = __funnelshift_rc(lo, hi, s);
+  if ((ph & 3) == 0) return a;
+  if ((ph & 3) == 1) return __vavgu4(a, __funnelshift_rc(lo, hi, s + 8));
+  const uint32_t lo2 = word_at(ref, Hr, nw, y + vs, x);
+  const uint32_t hi2 = word_at(ref, Hr, nw, y + vs, x + 1);
+  const uint32_t c = __funnelshift_rc(lo2, hi2, s);
+  if ((ph & 3) == 2) return __vavgu4(a, c);
+  const uint32_t b = __funnelshift_rc(lo, hi, s + 8);
+  const uint32_t d = __funnelshift_rc(lo2, hi2, s + 8);
+  return __vavgu4(__vavgu4(a, b), __vavgu4(c, d));
+}
+
+}  // namespace mp2v

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "mp2v_mc_roll_uv": _MC,
     "mp2v_mc_swar": _MC,
     "mp2v_mc_swar_field": _MC,
+    # K9: plane, Hp, Wp, sy, sx, ph, out, H, W, stream
+    "mp2v_mc_row": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    # K10: word plane, Hp, words per row, sy, sxq, rb, ph, out, H, W, stream
+    "mp2v_mc_row_packed": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

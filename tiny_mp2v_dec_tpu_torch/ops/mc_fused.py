@@ -246,9 +246,13 @@ def _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f, fld_b,
                            torch.where(f, pred, torch.where(b, pb, 0)))
     else:
         pred = torch.where(f, pred, 0)
-    words = pred.reshape(mbh, mbw, h, w // 4).permute(0, 2, 1, 3).reshape(
-        Hr, Wr // 4)
-    # unsigned 32-bit values -> the int32 of the same bits
+    return words_to_int32(pred.reshape(mbh, mbw, h, w // 4).permute(
+        0, 2, 1, 3).reshape(Hr, Wr // 4))
+
+
+def words_to_int32(words):
+    """int64 words holding unsigned 32-bit values -> the int32 of the same
+    bits."""
     return (words - ((words >> 31) << 32)).to(torch.int32)
 
 

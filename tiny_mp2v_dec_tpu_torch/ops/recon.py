@@ -21,6 +21,10 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
 The MC kernels are those of the JAX package's ``mc_impl`` (see
 :func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
 (frame prediction), ``swar`` K7/K8 (packed prediction per component).
+``use_cuda_idct`` / ``use_cuda_mc`` (the JAX package's ``use_pallas_idct``
+/ ``use_pallas_mc``) set to ``False`` take the kernels' plain versions on
+any device, which is what the kernel gate (``tools/perf_gate.py``) holds
+the kernels against; the decoder never passes them.
 
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
@@ -35,14 +39,26 @@ import torch
 from ..headers import CHROMA_420
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
-from .idct import idct_blocks
+from .idct import idct_blocks, idct_blocks_ref
 from .mc_fused import (fused_mc_pred_swar, fused_mc_pred_swar_field,
+                       fused_mc_pred_swar_field_ref, fused_mc_pred_swar_ref,
                        fused_mc_recon, fused_mc_recon_ref,
                        fused_mc_recon_roll, fused_mc_recon_uv,
                        fused_mc_recon_uv_ref, fused_mc_recon_uv_roll,
                        mc_field_meta, mc_meta, unpack_words)
 
 MC_IMPLS = ("mxu", "roll", "swar")
+_PLAIN = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
+# (impl, field support) -> (kernel wrappers, plain versions): (luma, U+V)
+# pairs, or under swar the one per-component prediction function
+_MC_FNS = {
+    ("mxu", False): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
+    ("mxu", True): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
+    ("roll", False): ((fused_mc_recon_roll, fused_mc_recon_uv_roll), _PLAIN),
+    ("roll", True): (None, _PLAIN),
+    ("swar", False): (fused_mc_pred_swar, fused_mc_pred_swar_ref),
+    ("swar", True): (fused_mc_pred_swar_field, fused_mc_pred_swar_field_ref),
+}
 
 
 def resolve_mc_impl(mc_impl: str | None, field_support: bool) -> str:
@@ -159,27 +175,31 @@ class DeviceRecon:
     ``field_support=False`` takes the frame-prediction kernels (K2/K3,
     K5/K6 or K7) and ignores field motion; ``True`` takes a field form (K4
     or K8), which predicts each MB frame- or field-based by its field_pred
-    flag.  ``mc_impl`` as :func:`resolve_mc_impl`.  An explicit ``"roll"``
-    with field support has no kernel: the JAX package takes its XLA gather
-    path there; the port takes the plain version on the CPU and raises on
-    any other device rather than run it on the card."""
+    flag.  ``mc_impl`` as :func:`resolve_mc_impl`.  ``use_cuda_mc=True``
+    takes the MC kernel wrappers (the kernels on ``cuda``, their plain
+    versions on the CPU), ``False`` the plain versions on any device.  An
+    explicit ``"roll"`` with field support has no kernel: the JAX package
+    takes its XLA gather path there; the port takes the plain version on
+    the CPU and raises on any other device rather than run it on the card,
+    unless ``use_cuda_mc=False`` asks for the plain version."""
 
     def __init__(self, geom: PictureGeometry, device,
-                 field_support: bool = False, mc_impl: str | None = None):
+                 field_support: bool = False, mc_impl: str | None = None,
+                 use_cuda_mc: bool = True):
         self.geom = geom
         self.device = torch.device(device)
         self.field_support = field_support
         self.mc_impl = resolve_mc_impl(mc_impl, field_support)
-        # (luma, U+V) reconstruction functions; swar predicts per component
-        self._mc_fns = {
-            "mxu": (fused_mc_recon, fused_mc_recon_uv),
-            "roll": (fused_mc_recon_roll, fused_mc_recon_uv_roll),
-            "swar": None}[self.mc_impl]
-        if self.mc_impl == "roll" and field_support:
+        kernels, plain = _MC_FNS[self.mc_impl, field_support]
+        if kernels is None and use_cuda_mc:
             if self.device.type != "cpu":
                 raise ValueError("mc_impl='roll' has no field-prediction "
                                  "kernel; use 'mxu' or 'swar'")
-            self._mc_fns = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
+            use_cuda_mc = False
+        self.use_cuda_mc = use_cuda_mc
+        # (luma, U+V) reconstruction functions; swar's one prediction
+        # function per component
+        self._mc_fns = kernels if self.use_cuda_mc else plain
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mb_y, mb_x = np.divmod(np.arange(geom.n_mb), geom.mb_width)
 
@@ -254,13 +274,11 @@ class DeviceRecon:
         ch, cw = 16 >> ys, 16 >> xs
         mvc = _scale_mv(mv, geom.chroma_format)
         if swar:
-            pred_fn = fused_mc_pred_swar_field if fs else fused_mc_pred_swar
-
             def component(c, pos, mvs, h, w):
                 H, W = mbh * h, mbw * w
-                predw = pred_fn(refs[c][0], refs[c][1],
-                                *meta(pos, mvs, H, W, h, w), h=h, w=w,
-                                bidir=bidir)
+                predw = self._mc_fns(refs[c][0], refs[c][1],
+                                     *meta(pos, mvs, H, W, h, w), h=h, w=w,
+                                     bidir=bidir)
                 # the uncoded-MB mask rides the residual: -256 saturates to
                 # 0 after the clip (int16 arithmetic, as the JAX epilogue)
                 coded_px = coded.reshape(mbh, 1, mbw, 1).expand(
@@ -302,14 +320,18 @@ class GopRecon:
     ``field_support`` selects the metadata form and, with ``mc_impl``, the
     kernels (see :class:`DeviceRecon`); a frame-prediction recon refuses
     field-predicted MBs, whose second-unit vectors its 5-column metadata
-    would drop."""
+    would drop.  ``use_cuda_idct=False`` takes K1's plain version, and
+    ``use_cuda_mc`` is :class:`DeviceRecon`'s."""
 
     def __init__(self, geom: PictureGeometry, chunk: int, device,
-                 field_support: bool = False, mc_impl: str | None = None):
+                 field_support: bool = False, mc_impl: str | None = None,
+                 use_cuda_idct: bool = True, use_cuda_mc: bool = True):
         self.geom = geom
         self.chunk = chunk
         self.device = torch.device(device)
-        self.inner = DeviceRecon(geom, self.device, field_support, mc_impl)
+        self.use_cuda_idct = use_cuda_idct
+        self.inner = DeviceRecon(geom, self.device, field_support, mc_impl,
+                                 use_cuda_mc)
         self._cols = meta2_cols(field_support)
         # within-picture dense-grid index fits uint16 for every geometry up
         # to ~2.7K-wide video; 0xFFFF is the padding sentinel
@@ -387,7 +409,8 @@ class GopRecon:
         coeff = torch.zeros(cap_k * 64 + 1, dtype=torch.int16, device=dev)
         coeff.index_put_((pair_idx,), pair_val)
         # 2) one IDCT over every coded block of the whole chunk (K1)
-        res_rows = idct_blocks(coeff[:cap_k * 64].view(cap_k, 64))
+        idct = idct_blocks if self.use_cuda_idct else idct_blocks_ref
+        res_rows = idct(coeff[:cap_k * 64].view(cap_k, 64))
         # 3) place residual blocks into the per-picture dense grid
         dense = torch.zeros((span + cap_k, 64), dtype=torch.int16,
                             device=dev)

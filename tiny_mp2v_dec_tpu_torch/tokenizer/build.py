@@ -1,19 +1,21 @@
 """Build the native tokenizer shared library (g++, no external deps).
 
-The port compiles the JAX package's C++ tokenizer source by path — reading a
-C++ file imports nothing — into the repository's ``build/tokenizer/``
-directory, never next to the sources.  The library is rebuilt when a source
-is newer (cheap mtime check); ``python -m
-tiny_mp2v_dec_tpu_torch.tokenizer.build`` forces a rebuild.
+The port compiles its own copy of the JAX package's C++ tokenizer
+(``csrc/tokenizer.cpp`` and ``csrc/vlc_tables.inc`` beside this file, byte
+for byte the JAX package's files; ``tests/test_torch_build.py`` holds them
+equal) into the repository's ``build/tokenizer/`` directory, never next to
+the sources.  The library is rebuilt when a source is newer (cheap mtime
+check); ``python -m tiny_mp2v_dec_tpu_torch.tokenizer.build`` forces a
+rebuild.
 """
 from __future__ import annotations
 
 import os
 import subprocess
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-CSRC = os.path.join(_REPO, "tiny_mp2v_dec_tpu", "tokenizer", "csrc")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_HERE))
+CSRC = os.path.join(_HERE, "csrc")
 SRC = os.path.join(CSRC, "tokenizer.cpp")
 INC = os.path.join(CSRC, "vlc_tables.inc")
 BUILD_DIR = os.path.join(_REPO, "build", "tokenizer")
