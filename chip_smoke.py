@@ -21,6 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time per call, see :func:`cuda_ms`); then K9 and K10 (the MC profiler's
    whole-plane prediction, bytes and 4-pixel words) at the profiler's
    1080p inputs and again with every window at the bottom and right edges;
+   then K2 and K3 on a plane of one MB (:func:`one_mb_times`) and K2 on
+   a plane of uncoded MBs (:func:`uncoded_time`);
 4. end to end, five paths through ``MP2VDecoder`` on ``cuda``: a
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
@@ -41,8 +43,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on its path, its error and device time against its plain
-version, and its bound (:func:`bound`); the last line is ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX.
+version, and its bound (:func:`bound`); the line before it K2's and K3's
+one-MB times and K2's uncoded time; the last line is
+``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -134,15 +138,6 @@ def bound(tensors_in, tensors_out, ops_per_out: int,
             "library_ms": None}
 
 
-def tensors(nest):
-    """The tensors of a nest of tuples and lists, in order."""
-    for x in nest:
-        if isinstance(x, (tuple, list)):
-            yield from tensors(x)
-        else:
-            yield x
-
-
 def max_abs_err(torch, got, ref) -> int:
     return int((got.to(torch.int32) - ref.to(torch.int32)).abs().max())
 
@@ -169,16 +164,18 @@ def check_idct(torch, np, rng):
             **bound((x,), (got,), OPS_PER_OUT["idct8x8"])}
 
 
-def mc_inputs(torch, np, rng, H, W, th, tw, field):
+def mc_inputs(torch, np, rng, H, W, th, tw, field, mode_all=None,
+              device="cuda"):
     """Random refs, residual and per-MB metadata for one (H, W) plane of
-    (th x tw) MBs: MVs cover all four half-pel phases and the edge clamps;
-    modes cover every combination of fwd/bwd/coded.  ``field``: also the
-    field tuples of both directions (random field selects, MVs of both
-    units), with the field bit on about half the MBs."""
+    (th x tw) MBs on ``device``: MVs cover all four half-pel phases and the
+    edge clamps; modes cover every combination of fwd/bwd/coded, or are all
+    ``mode_all``.  ``field``: also the field tuples of both directions
+    (random field selects, MVs of both units), with the field bit on about
+    half the MBs."""
     from tiny_mp2v_dec_tpu_torch.ops.mc_fused import mc_meta
     mbh, mbw = H // th, W // tw
     n = mbh * mbw
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     plane = lambda: t(rng.integers(0, 256, (H, W)).astype(np.uint8))  # noqa
     resid = lambda: t(  # noqa: E731
@@ -192,6 +189,8 @@ def mc_inputs(torch, np, rng, H, W, th, tw, field):
             *mc_meta(pos_y, pos_x, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W,
                      th, tw)]
     mode = rng.permutation(np.arange(n) % 8)
+    if mode_all is not None:
+        mode = np.full(n, mode_all)
     if field:
         # imported here: tools/ab_kernel_times.py runs the frame form on
         # checkouts that have no field form
@@ -224,13 +223,15 @@ def mc_kernel(mc_fused, impl: str, uv: bool, field: bool):
 
 
 def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
-             field: bool = False, impl: str = "mxu"):
+             field: bool = False, impl: str = "mxu", mode_all=None):
     """The MC kernel of ``impl`` (see :func:`mc_kernel`) on one (H, W)
-    plane, or U and V with ``uv``, with ``bidir`` True and False.  The SWAR
-    kernels' words are compared as words and their error read on the
-    unpacked pixels."""
+    plane, or U and V with ``uv``, with ``bidir`` True and False (its time
+    in ``fwd_ms``), every MB at ``mode_all`` if given.  The SWAR kernels'
+    words are compared as words and their error read on the unpacked
+    pixels."""
     from tiny_mp2v_dec_tpu_torch.ops import mc_fused
-    plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw, field)
+    plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw, field,
+                                   mode_all)
     fn, ref_fn = mc_kernel(mc_fused, impl, uv, field)
     if impl == "swar":
         args = (plane(), plane())
@@ -263,9 +264,15 @@ def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
         print(f"{name} bidir={bidir}: {planes}{H}x{W} in {th}x{tw} tiles, "
               f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if bidir:   # the record carries the B-picture (bidir) form
+            # the inputs count by the bytes this run's modes need
+            read = mc_read_bytes(torch, meta, H, W, th, tw,
+                                 n_planes=2 if uv else 1, field=field,
+                                 recon=impl != "swar")
             out = {"ms": ms, "plain_ms": plain_ms, **bound(
-                list(tensors((args, meta))), (got,),
-                OPS_PER_OUT["swar" if impl == "swar" else "recon"])}
+                (), (got,), OPS_PER_OUT["swar" if impl == "swar" else "recon"],
+                read)}
+        else:
+            out["fwd_ms"] = ms
         out["max_abs_err"] = max(out.get("max_abs_err", 0), err)
     return out
 
@@ -285,25 +292,101 @@ def check_tiles(torch, np, rng, name, planes, main, **kw):
     return rec
 
 
+def one_mb_times(torch, np, rng) -> dict:
+    """K2 and K3 on a plane that holds one MB (16x16 luma; 8x8 U and V),
+    coded and bidirectional, checked against the plain version like every
+    form: device ms per call, bidir and forward-only.  The fixed cost of a
+    launch of these kernels, which no design of them removes."""
+    forms = (("mc_recon_luma", "K2 one MB", 16, False),
+             ("mc_recon_uv", "K3 one MB", 8, True))
+    out = {}
+    for name, label, t, uv in forms:
+        r = check_mc(torch, np, rng, label, t, t, t, t, uv=uv, mode_all=7)
+        out[name] = {"ms": r["ms"], "fwd_ms": r["fwd_ms"]}
+    return out
+
+
+def uncoded_time(torch, np, rng) -> dict:
+    """K2 on a 1088x1920 plane of uncoded MBs (mode 0 everywhere), checked
+    like every form: the whole grid's launch, its mode loads and its 2 MB
+    of zeros stored, no reference or residual read.  Device ms per call."""
+    r = check_mc(torch, np, rng, "K2 all uncoded", 1088, 1920, 16, 16,
+                 uv=False, mode_all=0)
+    return {"mc_recon_luma": {"ms": r["ms"], "fwd_ms": r["fwd_ms"]}}
+
+
 def window_bytes(torch, sy, sx, ph, H, W, word: int = 1) -> int:
-    """Bytes of a padded plane that the MBs' prediction windows need, read
-    in units of ``word`` bytes (a unit counts whole when any of its bytes
-    is needed): per MB the 16x16 pixels at the clamped start ``(sy, sx)``,
-    the row below under a vertical half-pel phase (``ph`` bit 1) and the
-    column to the right under a horizontal one (bit 0).  The union over
-    all MBs: what this run's vectors need read, however wide the padding
-    is."""
-    sy = torch.clamp(sy.to(torch.int64), 0, H - 16)[:, None]
-    sx = torch.clamp(sx.to(torch.int64), 0, W - 16)[:, None]
-    ph = ph.to(torch.int64)[:, None]
-    r = torch.arange(17, device=sy.device)
-    # an unneeded 17th tap repeats the first, which the union ignores
-    rows = torch.where(r < 16 + ((ph >> 1) & 1), sy + r, sy)
-    cols = torch.where(r < 16 + (ph & 1), sx + r, sx) // word
-    need = torch.zeros((H + 1, (W + word) // word), dtype=torch.bool,
-                       device=sy.device)
-    need[rows[:, :, None], cols[:, None, :]] = True
-    return int(need.sum()) * word
+    """Bytes of a padded plane that the MBs' 16x16 prediction windows
+    need, read in units of ``word`` bytes (:func:`tap_bytes`), at the
+    starts ``(sy, sx)`` clamped into the plane: the row and column a
+    half-pel phase adds lie in the padding, which is in memory and counts.
+    The union over all MBs: what this run's vectors need read, however
+    wide the padding is."""
+    sy = torch.clamp(sy.to(torch.int64), 0, H - 16)
+    sx = torch.clamp(sx.to(torch.int64), 0, W - 16)
+    return tap_bytes(torch, [(sy, sx, ph, 1, 16)], H + 1, W + word, 16, word)
+
+
+def tap_bytes(torch, wins, H: int, W: int, w: int, word: int = 1) -> int:
+    """Bytes of an (H, W) plane under the union of the taps of ``wins``,
+    read in units of ``word`` bytes (a unit counts whole when any of its
+    bytes is needed): each (row0, col0, ph, vs, n) holds per window its
+    first tap row and column, its phase, the rows between its vertical
+    taps and its tile rows; a window is rows ``row0 + vs * k`` for the
+    ``n`` tile rows k, and one more under a vertical half-pel phase
+    (``ph`` bit 1), by columns ``col0 ..`` for the ``w`` tile columns, one
+    more under a horizontal one (bit 0).  Taps at a row >= H or a column
+    >= W read the zero pad, which is not in memory, and count nothing."""
+    nw = -(-W // word)
+    need = torch.zeros((H + 1, nw + 1), dtype=torch.bool,
+                       device=wins[0][0].device)
+    for row0, col0, ph, vs, n in wins:
+        if not row0.numel():
+            continue
+        ph = ph.to(torch.int64)[:, None]
+        r = torch.arange(n + 1, device=row0.device)
+        c = torch.arange(w + 1, device=row0.device)
+        # an unneeded last tap repeats the first, which the union ignores
+        rows = row0.to(torch.int64)[:, None] + vs * torch.where(
+            r < n + ((ph >> 1) & 1), r, 0)
+        cols = col0.to(torch.int64)[:, None] + torch.where(
+            c < w + (ph & 1), c, 0)
+        need[rows.clamp(max=H)[:, :, None],
+             (cols.clamp(max=W) // word).clamp(max=nw)[:, None, :]] = True
+    return int(need[:H, :nw].sum()) * word
+
+
+def mc_read_bytes(torch, meta, H: int, W: int, th: int, tw: int,
+                  n_planes: int, field: bool, recon: bool) -> int:
+    """Input bytes a bidir call of an MC kernel needs at this run's
+    inputs (:func:`mc_inputs`' ``meta`` for an (H, W) plane of (th x tw)
+    MBs, ``n_planes`` planes sharing it): the mode vector; per direction,
+    the vectors and the reference windows (:func:`tap_bytes`, per plane)
+    of the MBs whose mode uses that direction — frame windows, or with
+    ``field`` the two units' field windows of the MBs with mode bit 8; and
+    with ``recon`` (K2–K6: residual, clip, coded mask) only of coded MBs
+    (bit 4), whose residual is the rest.  An uncoded MB's output is 0
+    whatever its inputs, and the SWAR kernels (not ``recon``) ignore the
+    coded bit."""
+    mode = meta[6].to(torch.int64)
+    fld = (mode & 8) != 0 if field else torch.zeros_like(mode, dtype=bool)
+    coded = (mode & 4) != 0 if recon else torch.ones_like(fld)
+    nbytes = 4 * mode.numel()
+    for d in range(2):
+        use = coded & ((mode & (1 << d)) != 0)
+        frame, by_field = use & ~fld, use & fld
+        sy, sx, ph = meta[3 * d:3 * d + 3]
+        wins = [(sy[frame], sx[frame], ph[frame], 1, th)]
+        if field:
+            tup = [x[by_field] for x in meta[7 + d]]
+            # unit u's tile rows are u, u + 2, ...: frame rows C_u + u + 2k
+            wins += [(tup[3 * u] + u, tup[3 * u + 1], tup[3 * u + 2], 2,
+                      th // 2) for u in range(2)]
+        nbytes += 4 * (3 * int(frame.sum()) + 6 * int(by_field.sum()))
+        nbytes += n_planes * tap_bytes(torch, wins, H, W, tw)
+    if recon:
+        nbytes += n_planes * 2 * th * tw * int(coded.sum())
+    return nbytes
 
 
 def check_rows(torch):
@@ -508,6 +591,8 @@ def main() -> int:
                                      field=True, impl="swar"),
         **check_rows(torch),
     }
+    one_mb = one_mb_times(torch, np, rng)
+    uncoded = uncoded_time(torch, np, rng)
 
     # 4) end to end through the decoder's entry point, one path at a time
     launches = {}
@@ -524,8 +609,8 @@ def main() -> int:
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"
     sources = {
         "idct8x8": ("idct.cu", "tiny_mp2v_dec_tpu/ops/idct.py:49"),
-        "mc_recon_luma": ("mc_recon.cu", f"{mcp}:445"),
-        "mc_recon_uv": ("mc_recon.cu", f"{mcp}:489"),
+        "mc_recon_luma": ("mc_recon.cu", f"{mcp}:448"),
+        "mc_recon_uv": ("mc_recon.cu", f"{mcp}:492"),
         "mc_field_luma": ("mc_recon.cu", f"{mcp}:353"),
         "mc_field_uv": ("mc_recon.cu", f"{mcp}:353"),
         "mc_roll_luma": ("mc_roll.cu", f"{mcp}:122"),
@@ -540,6 +625,8 @@ def main() -> int:
                 "replaces": sources[name][1],
                 "launches": launches.get(name, 0), **r}
                for name, r in rec.items()]
+    print(json.dumps({"one_mb_ms": one_mb, "uncoded_ms": uncoded,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,7 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version (K3, K4, K6, K7 and K8 at the chroma tile of every format,
+PyTorch version (K2 and K3 on every input kind of :func:`_mc_case`: edge
+windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
+K3, K4, K6, K7 and K8 at the chroma tile of every format,
 K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
 profiler's parity run and the kernel gate.
@@ -49,13 +51,32 @@ def test_idct_kernel_matches_plain():
     assert torch.equal(got, idct_blocks_ref(x))
 
 
-def _mc_case(dev, seed, H, W, tile, n_planes, field=False):
+# input kinds of the frame forms (:func:`_mc_case`)
+MC_KINDS = ("random", "edges", "sx_phases", "mode7", "extreme_residual",
+            "one_mb")
+
+
+def _mc_case(dev, seed, H, W, tile, n_planes, field=False, kind="random"):
     """Random planes and per-MB vectors; ``tile`` is (rows, columns) or a
     square side.  ``field``: field tuples of both directions appended, the
-    field bit on about half the MBs."""
+    field bit on about half the MBs.  ``kind`` (one of :data:`MC_KINDS`)
+    shapes the frame vectors and the residual:
+
+    * ``random``: window starts and phases from random MVs (clamped by
+      ``mc_meta``), modes 0-7 in equal numbers;
+    * ``edges``: windows at ``sy = H - h``, ``sx = W - w`` or both (the
+      taps past the plane read the zero pad) at every phase, mode 7;
+    * ``sx_phases``: every ``sx & 3`` at every phase, mode 7 (needs
+      ``W - w >= 3``);
+    * ``mode7``: random windows, every MB at mode 7;
+    * ``extreme_residual``: random windows and modes, the residual mostly
+      at -32768 and 32767;
+    * ``one_mb``: a plane of one MB (``H`` and ``W`` ignored)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     th, tw = tile if isinstance(tile, tuple) else (tile, tile)
+    if kind == "one_mb":
+        H, W = th, tw
     mbh, mbw = H // th, W // tw
     n = mbh * mbw
     mb_y, mb_x = np.divmod(np.arange(n), mbw)
@@ -67,51 +88,83 @@ def _mc_case(dev, seed, H, W, tile, n_planes, field=False):
     meta = [*mc_fused.mc_meta(*pos, mv[:, 0, 0, 0], mv[:, 0, 0, 1], H, W,
                               th, tw),
             *mc_fused.mc_meta(*pos, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W,
-                              th, tw),
-            t(mode.astype(np.int32))]
+                              th, tw)]
+    if kind in ("edges", "sx_phases", "mode7"):
+        mode = np.full(n, 7)
+    if kind in ("edges", "sx_phases"):
+        i = np.arange(n)
+        for s in range(2):
+            sy = rng.integers(0, H - th + 1, n)
+            sx = rng.integers(0, W - tw + 1, n)
+            if kind == "edges":
+                sy = np.where(i % 3 != 1, H - th, sy)
+                sx = np.where(i % 3 != 0, W - tw, sx)
+                ph = (i // 3 + s) % 4
+            else:
+                sx = (np.minimum(sx, W - tw - 3) & ~3) + i % 4
+                ph = (i // 4 + s) % 4
+            meta[3 * s:3 * s + 3] = [t(x.astype(np.int32))
+                                     for x in (sy, sx, ph)]
+    meta.append(t(mode.astype(np.int32)))
     if field:
         mvfs = t(rng.integers(0, 2, (n, 2, 2)).astype(np.uint8))
         meta += [mc_fused.mc_field_meta(*pos, mv[:, :, s], mvfs[:, :, s],
                                         H, W, th, tw) for s in range(2)]
     plane = lambda: t(rng.integers(0, 256, (H, W)).astype(np.uint8))  # noqa
-    res = [t(rng.integers(-300, 300, (H, W)).astype(np.int16))
-           for _ in range(n_planes)]
+
+    def resid():
+        r = rng.integers(-300, 300, (H, W))
+        if kind == "extreme_residual":
+            r = np.where(rng.random((H, W)) < 0.75,
+                         rng.choice([-32768, 32767], (H, W)), r)
+        return t(r.astype(np.int16))
+
+    res = [resid() for _ in range(n_planes)]
     return ([plane() for _ in range(n_planes)],
             [plane() for _ in range(n_planes)], res, meta)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
-def test_mc_luma_kernel_matches_plain(bidir):
+@pytest.mark.parametrize("kind", MC_KINDS)
+def test_mc_luma_kernel_matches_plain(kind, bidir):
+    """K2 against its plain version on every input kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 13, 1088, 1920, 16, 1)
+    r0, r1, res, meta = _mc_case(dev, 13, 1088, 1920, 16, 1, kind=kind)
+    before = _build.LAUNCHES["mc_recon_luma"]
     got = mc_fused.fused_mc_recon(r0[0], r1[0], res[0], *meta, bidir=bidir)
     want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
                                        h=16, w=16, bidir=bidir)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_recon_luma"] == before + 1
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
-def test_mc_uv_kernel_matches_plain(bidir):
+@pytest.mark.parametrize("kind", MC_KINDS)
+def test_mc_uv_kernel_matches_plain(kind, bidir):
+    """K3 at the 4:2:0 tile (8x8) on every input kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 14, 544, 960, 8, 2)
+    r0, r1, res, meta = _mc_case(dev, 14, 544, 960, 8, 2, kind=kind)
     args = (tuple(r0), tuple(r1), tuple(res), *meta)
+    before = _build.LAUNCHES["mc_recon_uv"]
     got = mc_fused.fused_mc_recon_uv(*args, bidir=bidir)
     want = mc_fused.fused_mc_recon_uv_ref(*args, h=8, w=8, bidir=bidir)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_recon_uv"] == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
 @pytest.mark.parametrize("H,W,tile", [(1088, 960, (16, 8)),
                                       (1088, 1920, (16, 16))])
-def test_mc_uv_kernel_tiles_match_plain(H, W, tile, bidir):
-    """K3 at the 4:2:2 and 4:4:4 chroma tiles."""
+def test_mc_uv_kernel_tiles_match_plain(H, W, tile, kind, bidir):
+    """K3 at the 4:2:2 and 4:4:4 chroma tiles on every input kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 15, H, W, tile, 2)
+    r0, r1, res, meta = _mc_case(dev, 15, H, W, tile, 2, kind=kind)
     args = (tuple(r0), tuple(r1), tuple(res), *meta)
     got = mc_fused.fused_mc_recon_uv(*args, h=tile[0], w=tile[1],
                                      bidir=bidir)
@@ -119,6 +172,27 @@ def test_mc_uv_kernel_tiles_match_plain(H, W, tile, bidir):
                                           bidir=bidir)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uv", [False, True])
+def test_mc_recon_refuses_misaligned_residual(uv):
+    """K2 and K3 load the residual 16 bytes at a time: a residual view two
+    bytes into its storage raises before any launch."""
+    dev = _require_cuda()
+    tile = 8 if uv else 16
+    r0, r1, res, meta = _mc_case(dev, 21, 64, 64, tile, 2 if uv else 1)
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.int16, device=dev)
+    shifted = flat[1:].view(64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        if uv:
+            mc_fused.fused_mc_recon_uv(tuple(r0), tuple(r1),
+                                       (res[0], shifted), *meta, h=8, w=8)
+        else:
+            mc_fused.fused_mc_recon(r0[0], r1[0], shifted, *meta)
+    assert dict(_build.LAUNCHES) == before
 
 
 @pytest.mark.cuda

@@ -1,0 +1,134 @@
+"""PyTorch port, the formulation K2's and K3's frame kernels rest on.
+
+The kernels predict in packed 32-bit words (four pixels each: funnel-shift
+taps and per-byte rounding averages, the function of
+``fused_mc_pred_swar_ref``) and then run an epilogue on the words: the
+int16 residual read as 32-bit pairs, added per pixel in 32-bit arithmetic,
+clipped to [0, 255], zero for uncoded MBs, bytes packed back into words.
+Here that chain, on the CPU at a small size, equals the unpacked plain
+versions ``fused_mc_recon_ref`` / ``fused_mc_recon_uv_ref`` at every tile
+and on every input kind of ``test_torch_gpu._mc_case`` (edge windows,
+every ``sx & 3``, every mode, extreme residuals, one-MB planes).  Both
+plain versions are held against the JAX package's Pallas kernels in
+``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then the wrappers'
+alignment checks, which run before any launch."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_gpu import MC_KINDS, _mc_case  # noqa: E402
+from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
+
+# (tile rows, columns), planes per call: K2 luma, K3 at each chroma tile
+TILES = [((16, 16), 1), ((8, 8), 2), ((16, 8), 2), ((16, 16), 2)]
+MBH, MBW = 4, 5                       # MBs per plane (one_mb: 1 x 1)
+
+
+def _epilogue(words, res, mode, h, w):
+    """The kernels' epilogue on one (H, W) plane: ``words`` the (H, W/4)
+    int32 prediction, ``res`` the int16 residual, ``mode`` per MB.
+    Returns the (H, W) uint8 plane."""
+    H, W = res.shape
+    pairs = res.contiguous().view(torch.int32)    # pixel 2j in the low half
+    lo = ((pairs & 0xFFFF) ^ 0x8000) - 0x8000     # sign-extended low half
+    r = torch.stack([lo, pairs >> 16], dim=-1).reshape(H, W)
+    wd = words.to(torch.int64) & 0xFFFFFFFF
+    pred = torch.stack([(wd >> (8 * k)) & 0xFF for k in range(4)],
+                       dim=-1).reshape(H, W)
+    val = torch.clamp(pred + r, 0, 255)
+    coded = ((mode & 4) != 0).reshape(H // h, 1, W // w, 1).expand(
+        H // h, h, W // w, w).reshape(H, W)
+    val = torch.where(coded, val, 0).reshape(H, W // 4, 4)
+    packed = sum(val[..., k] << (8 * k) for k in range(4))
+    return mc_fused.unpack_words(mc_fused.words_to_int32(packed))
+
+
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
+@pytest.mark.parametrize("tile,planes", TILES)
+def test_word_prediction_and_epilogue_equal_the_recon(tile, planes, kind,
+                                                      bidir):
+    h, w = tile
+    r0, r1, res, meta = _mc_case("cpu", 70 + h + w + planes, MBH * h,
+                                 MBW * w, tile, planes, kind=kind)
+    if planes == 1:
+        want = (mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
+                                            h=h, w=w, bidir=bidir),)
+    else:
+        want = mc_fused.fused_mc_recon_uv_ref(tuple(r0), tuple(r1),
+                                              tuple(res), *meta, h=h, w=w,
+                                              bidir=bidir)
+    for k in range(planes):
+        words = mc_fused.fused_mc_pred_swar_ref(r0[k], r1[k], *meta, h=h,
+                                                w=w, bidir=bidir)
+        assert torch.equal(_epilogue(words, res[k], meta[6], h, w), want[k])
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8)])
+def test_mc_case_kinds_cover_what_they_claim(tile):
+    """The input kinds reach what the kernels' tests rely on: windows at
+    the bottom and right edges at every phase, every ``sx & 3`` at every
+    phase, every mode, residuals at both int16 limits, one-MB planes."""
+    h, w = tile
+    H, W = MBH * h, MBW * w
+
+    def case(kind):
+        _, _, res, meta = _mc_case("cpu", 5, H, W, tile, 1, kind=kind)
+        return res[0], [m.numpy() for m in meta]
+
+    _, m = case("edges")
+    for s in range(2):
+        sy, sx, ph = m[3 * s:3 * s + 3]
+        at = {(a, b, p) for a, b, p in zip(sy == H - h, sx == W - w, ph)}
+        assert at >= {(e, f, p) for e, f in ((1, 0), (0, 1), (1, 1))
+                      for p in range(4)}
+    _, m = case("sx_phases")
+    for s in range(2):
+        sx, ph = m[3 * s + 1], m[3 * s + 2]
+        assert set(zip(sx & 3, ph)) == {(a, p) for a in range(4)
+                                       for p in range(4)}
+        assert sx.min() >= 0 and sx.max() <= W - w
+    assert set(case("random")[1][6]) == set(range(8))
+    assert set(case("mode7")[1][6]) == {7}
+    res, _ = case("extreme_residual")
+    assert int(res.min()) == -32768 and int(res.max()) == 32767
+    res, m = case("one_mb")
+    assert res.shape == (h, w) and all(len(x) == 1 for x in m)
+
+
+def _recon_args(entry, fault):
+    """Arguments of ``_launch`` for a frame form of K2 (luma) or K3 (U+V)
+    on CPU tensors, with one input misaligned as ``fault`` says."""
+    uv = entry == "mp2v_mc_recon_uv"
+    h = w = 8 if uv else 16
+    H = W = 32
+    ref = torch.zeros((H, W), dtype=torch.uint8)
+    res = torch.zeros((H, W), dtype=torch.int16)
+    if fault == "residual":
+        res = torch.zeros(H * W + 1, dtype=torch.int16)[1:].view(H, W)
+    elif fault == "reference":
+        ref = torch.zeros(H * W + 1, dtype=torch.uint8)[1:].view(H, W)
+    else:                             # a reference width not divisible by 4
+        ref = torch.zeros((H, W + 2), dtype=torch.uint8)
+    n = (H // h) * (W // w)
+    meta = tuple(torch.zeros(n, dtype=torch.int32) for _ in range(7))
+    k = 2 if uv else 1
+    return ((ref,) * k, (ref,) * k, (res,) * k, meta, h, w)
+
+
+@pytest.mark.parametrize("fault,match", [("residual", "16-byte"),
+                                         ("reference", "4-byte"),
+                                         ("width", "divisible by 4")])
+@pytest.mark.parametrize("entry", ["mp2v_mc_recon_luma", "mp2v_mc_recon_uv"])
+def test_recon_kernels_refuse_misaligned_inputs(entry, fault, match):
+    """K2 and K3 read the references as words and the residual 16 bytes at
+    a time: the launcher's checks raise before it loads the kernel library
+    (so they run here, on CPU tensors) and count no launch."""
+    refs0, refs1, ress, meta, h, w = _recon_args(entry, fault)
+    assert all(x.is_contiguous() for x in (*refs0, *ress))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        mc_fused._launch(entry, "mc_recon", refs0, refs1, ress, meta, h, w,
+                         True)
+    assert dict(_build.LAUNCHES) == before

@@ -1,5 +1,6 @@
 // One 4-pixel word of a packed half-pel prediction, shared by the SWAR
-// kernels K7/K8 (csrc/mc_swar.cu) and K10 (csrc/mc_rows.cu).
+// kernels K7/K8 (csrc/mc_swar.cu) and K10 (csrc/mc_rows.cu), and the
+// 8-pixel row segment of the frame kernels K2/K3 (csrc/mc_recon.cu).
 //
 // A word holds pixels 4x .. 4x+3 of a row, the first at the least
 // significant byte.  Word k of a prediction whose first pixel column is sx
@@ -45,6 +46,39 @@ __device__ __forceinline__ uint32_t halfpel_word(
   const uint32_t b = __funnelshift_rc(lo, hi, s + 8);
   const uint32_t d = __funnelshift_rc(lo2, hi2, s + 8);
   return __vavgu4(__vavgu4(a, b), __vavgu4(c, d));
+}
+
+// Words k and k + 1 of the same prediction (8 pixels from sx + 4k): the
+// two words halfpel_word gives, from three aligned words per row, the
+// middle one shared by both.
+__device__ __forceinline__ uint2 halfpel_word2(
+    const uint32_t* __restrict__ ref, int Hr, int nw, int y, int sx, int k,
+    int ph, int vs) {
+  const int x = (sx >> 2) + k;
+  const unsigned s = (unsigned)(sx & 3) << 3;
+  const uint32_t w0 = word_at(ref, Hr, nw, y, x);
+  const uint32_t w1 = word_at(ref, Hr, nw, y, x + 1);
+  const uint32_t w2 = word_at(ref, Hr, nw, y, x + 2);
+  uint32_t p0 = __funnelshift_rc(w0, w1, s);
+  uint32_t p1 = __funnelshift_rc(w1, w2, s);
+  if (ph & 1) {
+    p0 = __vavgu4(p0, __funnelshift_rc(w0, w1, s + 8));
+    p1 = __vavgu4(p1, __funnelshift_rc(w1, w2, s + 8));
+  }
+  if (ph & 2) {
+    const uint32_t v0 = word_at(ref, Hr, nw, y + vs, x);
+    const uint32_t v1 = word_at(ref, Hr, nw, y + vs, x + 1);
+    const uint32_t v2 = word_at(ref, Hr, nw, y + vs, x + 2);
+    uint32_t q0 = __funnelshift_rc(v0, v1, s);
+    uint32_t q1 = __funnelshift_rc(v1, v2, s);
+    if (ph & 1) {
+      q0 = __vavgu4(q0, __funnelshift_rc(v0, v1, s + 8));
+      q1 = __vavgu4(q1, __funnelshift_rc(v1, v2, s + 8));
+    }
+    p0 = __vavgu4(p0, q0);
+    p1 = __vavgu4(p1, q1);
+  }
+  return make_uint2(p0, p1);
 }
 
 }  // namespace mp2v

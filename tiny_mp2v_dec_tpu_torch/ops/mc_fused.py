@@ -21,7 +21,10 @@ prediction: kernel K4, the field form of K2/K3 (replaces
 ``_field_pred_mxu``).  Without them bit 8 is ignored.  Reference planes
 are unpadded ``(Hr, Wr)`` uint8; taps beyond them read 0.  A CPU tensor
 takes the plain version (``*_ref``), built from :mod:`.mc`; a CUDA tensor
-takes the kernel; any other device raises.
+takes the kernel; any other device raises.  The frame forms of K2 and K3
+read the references as 32-bit words and the residual 8 pixels at a time:
+on the card they raise unless the references are 4-byte aligned with
+``Wr % 4 == 0`` and each residual plane is 16-byte aligned.
 
 The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
 :mod:`.recon`) have their kernels here too:
@@ -293,8 +296,12 @@ _TILES = {
     "mp2v_mc_swar_field": _CHROMA,
 }
 # entry points that read the reference planes as 32-bit words
-_WORD_READS = {"mp2v_mc_roll_luma", "mp2v_mc_roll_uv", "mp2v_mc_swar",
-               "mp2v_mc_swar_field"}
+_WORD_READS = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_roll_luma",
+               "mp2v_mc_roll_uv", "mp2v_mc_swar", "mp2v_mc_swar_field"}
+# entry points that load the residual 16 bytes and store the output 8 bytes
+# at a time (one 8-pixel row segment per thread); the outputs are allocated
+# by _launch, so only the residual is checked
+_VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv"}
 
 
 def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
@@ -328,6 +335,9 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
                 or tuple(x.shape) != (H, W) or not x.is_contiguous()):
             raise ValueError(f"{entry}: residual planes must be contiguous "
                              f"({H}, {W}) int16 on {dev}")
+        if entry in _VECTOR_IO and x.data_ptr() % 16:
+            raise ValueError(f"{entry}: residual planes must be 16-byte "
+                             f"aligned")
     for x in meta:
         if (x.device != dev or x.dtype != torch.int32
                 or tuple(x.shape) != (n_mb,) or not x.is_contiguous()):

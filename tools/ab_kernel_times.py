@@ -1,5 +1,6 @@
-"""A/B of the frame-prediction kernels between two checkouts of the port,
-on one card, by ``chip_smoke.py``'s own measurement code.
+"""A/B of the IDCT and the ``mxu`` MC kernels (K1–K4) between two
+checkouts of the port, on one card, by ``chip_smoke.py``'s own
+measurement code.
 
     python3 tools/ab_kernel_times.py PARENT_ROOT [CHANGE_ROOT]
         [--pairs N] [--out DIR]
@@ -12,19 +13,29 @@ which side runs first (P C, C P, P C, ...).  Each process
   build (``_build.build(force=True)``, then loading the library);
 * compiles its ``csrc/mc_recon.cu`` with ``-Xptxas -v`` and keeps the
   stack size that ``ptxas`` reports for each kernel instantiation;
-* times K1 (``chip_smoke.check_idct``: 131,072 blocks), K2 (1088x1920
-  luma) and K3 (2 x 544x960 chroma, 8x8 tiles), bidir and forward-only,
-  on ``chip_smoke.mc_inputs`` with ``chip_smoke.cuda_ms`` (device time per
-  call), after checking each against its plain version.
+* compiles the same file to a cubin and keeps a digest of the SASS
+  (``cuobjdump -sass``) of each instantiation of the field kernel K4,
+  ``mc_recon_kernel``, by its tile and ``bidir`` (:func:`sass_digests`);
+* times K1 (``chip_smoke.check_idct``: 131,072 blocks) and, by
+  ``chip_smoke.check_mc`` (``chip_smoke.mc_inputs``, device time per call
+  by ``chip_smoke.cuda_ms``, each form checked against its plain version
+  first), bidir and forward-only: K2 (1088x1920 luma), K3 at every chroma
+  tile (2 x 544x960 at 8x8, 2 x 1088x960 at 16x8, 2 x 1088x1920 at
+  16x16), K4 luma and U+V at 16x8 (the field form: a control wherever
+  the two sides share its code), and K2 and K3 on a plane of one MB
+  (``chip_smoke.one_mb_times``: the fixed cost of a launch).
 
 Every run prints one JSON line; the summary gives, for each reading, the
-median of each side, the parent's interquartile range and the pairs in
-which the change read lower.  ``--out`` also keeps each process's full
-output there.  Needs one CUDA card and ``nvcc``; imports nothing of JAX.
+median of each side, the parent's interquartile range, whether the
+medians lie within it of each other, and the pairs in which the change
+read lower; and ``field_sass_equal``: whether both sides compiled K4 to
+the same machine code.  ``--out`` also keeps each process's full output there.
+Needs one CUDA card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -36,7 +47,15 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MC = (("K2 luma", 1088, 1920, 16, False), ("K3 uv 8x8", 544, 960, 8, True))
+# (reading, plane rows, columns, tile rows, columns, U+V, field form)
+MC = (("K2 luma", 1088, 1920, 16, 16, False, False),
+      ("K3 uv 8x8", 544, 960, 8, 8, True, False),
+      ("K3 uv 16x8", 1088, 960, 16, 8, True, False),
+      ("K3 uv 16x16", 1088, 1920, 16, 16, True, False),
+      ("K4 luma", 1088, 1920, 16, 16, False, True),
+      ("K4 uv 16x8", 1088, 960, 16, 8, True, True))
+# chip_smoke.one_mb_times' forms -> their readings
+ONE_MB = {"mc_recon_luma": "K2 one MB", "mc_recon_uv": "K3 one MB"}
 
 
 def _smoke():
@@ -66,13 +85,53 @@ def ptxas_stacks(nvcc: str, root: str) -> list:
     return [int(m) for m in found]
 
 
+def field_sass(nvcc: str, root: str) -> dict:
+    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu``, compiled to
+    a cubin as the build compiles it."""
+    src = os.path.join(root, "tiny_mp2v_dec_tpu_torch", "csrc", "mc_recon.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "mc_recon.cubin")
+        subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-cubin", "-o", cubin, src],
+            capture_output=True, text=True, check=True)
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+             cubin], capture_output=True, text=True, check=True).stdout
+    return sass_digests(sass)
+
+
+def sass_digests(sass: str) -> dict:
+    """sha256 of each instantiation of the field kernel ``mc_recon_kernel``
+    in ``cuobjdump -sass`` output, keyed by its first three template
+    arguments (tile rows, columns, bidir): the lines of its body — each
+    instruction and its encoding — without the function's name line, runs
+    of blanks (cuobjdump pads columns to the file's longest instruction)
+    or the file-wide numbering of branch labels."""
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name, _, body = fn.partition("\n")
+        # an older source's fourth argument FIELD: 1 is the field form
+        m = re.search(r"mc_recon_kernelILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?E",
+                      name)
+        if m and m[4] != "0":
+            labels = {}
+            body = re.sub(r"\.L_x_\d+", lambda x: labels.setdefault(
+                x[0], f".L{len(labels)}"), body)
+            body = "\n".join(" ".join(line.split())
+                             for line in body.splitlines())
+            out[f"{m[1]}x{m[2]} bidir={m[3]}"] = hashlib.sha256(
+                body.encode()).hexdigest()
+    return out
+
+
 def run_one(root: str) -> dict:
     """Build and time the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     smoke = _smoke()
     import numpy as np
     import torch
-    from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused
+    from tiny_mp2v_dec_tpu_torch.ops import _build
     if not torch.cuda.is_available():
         smoke.fail("torch finds no CUDA device")
     if not os.path.abspath(_build.__file__).startswith(
@@ -82,49 +141,40 @@ def run_one(root: str) -> dict:
     _build.build(force=True)
     _build.kernel_library()
     rec = {"root": root, "build_s": time.perf_counter() - t0,
-           "stacks": ptxas_stacks(_build.nvcc_path(), root)}
+           "stacks": ptxas_stacks(_build.nvcc_path(), root),
+           "field_sass": field_sass(_build.nvcc_path(), root)}
     rng = np.random.default_rng(2024)
     rec["K1 idct8x8"] = smoke.check_idct(torch, np, rng)["ms"]
-    for name, H, W, t, uv in MC:
-        plane, resid, meta = smoke.mc_inputs(torch, np, rng, H, W, t, t,
-                                             field=False)
-        if uv:
-            fn, ref_fn = (mc_fused.fused_mc_recon_uv,
-                          mc_fused.fused_mc_recon_uv_ref)
-            args = ((plane(), plane()), (plane(), plane()), (resid(), resid()))
-        else:
-            fn, ref_fn = mc_fused.fused_mc_recon, mc_fused.fused_mc_recon_ref
-            args = (plane(), plane(), resid())
-        for bidir in (True, False):
-            got = fn(*args, *meta, h=t, w=t, bidir=bidir)
-            ref = ref_fn(*args, *meta, h=t, w=t, bidir=bidir)
-            same = (all(map(torch.equal, got, ref)) if uv
-                    else torch.equal(got, ref))
-            if not same:
-                smoke.fail(f"{name} bidir={bidir} differs from its plain "
-                           f"version in {root}")
-            rec[f"{name} {'bidir' if bidir else 'fwd'}"] = smoke.cuda_ms(
-                torch, lambda: fn(*args, *meta, h=t, w=t, bidir=bidir))
+    for name, H, W, th, tw, uv, field in MC:
+        r = smoke.check_mc(torch, np, rng, name, H, W, th, tw, uv=uv,
+                           field=field)
+        rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
+    for form, r in smoke.one_mb_times(torch, np, rng).items():
+        name = ONE_MB[form]
+        rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
     return rec
 
 
 def summary(runs: list, parent: str, change: str) -> dict:
     """Per reading: median of each side, the parent's interquartile range,
-    and in how many pairs (the i-th run of each side) the change read
-    lower."""
+    whether the two medians lie within it of each other, and in how many
+    pairs (the i-th run of each side) the change read lower."""
     side = {r: [x for x in runs if x["root"] == r] for r in (parent, change)}
     out = {}
     for key in runs[0]:
-        if key in ("root", "stacks"):
+        if key in ("root", "stacks", "field_sass"):
             continue
         p = [x[key] for x in side[parent]]
         c = [x[key] for x in side[change]]
         q = statistics.quantiles(p, n=4) if len(p) > 1 else [p[0]] * 3
-        out[key] = {"parent_median": statistics.median(p),
-                    "change_median": statistics.median(c),
+        pm, cm = statistics.median(p), statistics.median(c)
+        out[key] = {"parent_median": pm, "change_median": cm,
                     "parent_iqr": q[2] - q[0],
+                    "within_parent_iqr": abs(cm - pm) <= q[2] - q[0],
                     "change_wins": sum(b < a for a, b in zip(p, c)),
                     "pairs": min(len(p), len(c))}
+    out["field_sass_equal"] = bool(runs[0]["field_sass"]) and all(
+        x["field_sass"] == runs[0]["field_sass"] for x in runs)
     return out
 
 
