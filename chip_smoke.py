@@ -21,8 +21,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time per call, see :func:`cuda_ms`); then K9 and K10 (the MC profiler's
    whole-plane prediction, bytes and 4-pixel words) at the profiler's
    1080p inputs and again with every window at the bottom and right edges;
-   then K2 and K3 on a plane of one MB (:func:`one_mb_times`) and K2 on
-   a plane of uncoded MBs (:func:`uncoded_time`);
+   then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
+   plane of uncoded MBs (:func:`uncoded_time`) and a kernel that does
+   nothing (:func:`empty_times`);
 4. end to end, five paths through ``MP2VDecoder`` on ``cuda``: a
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
@@ -44,7 +45,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The line before the last is the kernels' JSON record: per kernel its
 launches on its path, its error and device time against its plain
 version, and its bound (:func:`bound`); the line before it K2's and K3's
-one-MB times and K2's uncoded time; the last line is
+one-MB times, K2's uncoded time and the empty kernel's; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -165,13 +166,13 @@ def check_idct(torch, np, rng):
 
 
 def mc_inputs(torch, np, rng, H, W, th, tw, field, mode_all=None,
-              device="cuda"):
+              device="cuda", field_share=0.5):
     """Random refs, residual and per-MB metadata for one (H, W) plane of
     (th x tw) MBs on ``device``: MVs cover all four half-pel phases and the
     edge clamps; modes cover every combination of fwd/bwd/coded, or are all
     ``mode_all``.  ``field``: also the field tuples of both directions
-    (random field selects, MVs of both units), with the field bit on about
-    half the MBs."""
+    (random field selects, MVs of both units), with the field bit on a
+    ``field_share`` of the MBs, drawn at random."""
     from tiny_mp2v_dec_tpu_torch.ops.mc_fused import mc_meta
     mbh, mbw = H // th, W // tw
     n = mbh * mbw
@@ -196,7 +197,7 @@ def mc_inputs(torch, np, rng, H, W, th, tw, field, mode_all=None,
         # checkouts that have no field form
         from tiny_mp2v_dec_tpu_torch.ops.mc_fused import mc_field_meta
         mvfs = t(rng.integers(0, 2, (n, 2, 2)).astype(np.uint8))
-        mode = mode + 8 * (rng.random(n) < 0.5)
+        mode = mode + 8 * (rng.random(n) < field_share)
         meta += [t(mode.astype(np.int32))] + [
             mc_field_meta(pos_y, pos_x, mv[:, :, s], mvfs[:, :, s], H, W,
                           th, tw) for s in range(2)]
@@ -223,15 +224,16 @@ def mc_kernel(mc_fused, impl: str, uv: bool, field: bool):
 
 
 def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
-             field: bool = False, impl: str = "mxu", mode_all=None):
+             field: bool = False, impl: str = "mxu", mode_all=None,
+             field_share: float = 0.5):
     """The MC kernel of ``impl`` (see :func:`mc_kernel`) on one (H, W)
     plane, or U and V with ``uv``, with ``bidir`` True and False (its time
-    in ``fwd_ms``), every MB at ``mode_all`` if given.  The SWAR kernels'
-    words are compared as words and their error read on the unpacked
-    pixels."""
+    in ``fwd_ms``), every MB at ``mode_all`` if given, the field bit on a
+    ``field_share`` of the MBs with ``field``.  The SWAR kernels' words are
+    compared as words and their error read on the unpacked pixels."""
     from tiny_mp2v_dec_tpu_torch.ops import mc_fused
     plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw, field,
-                                   mode_all)
+                                   mode_all, field_share=field_share)
     fn, ref_fn = mc_kernel(mc_fused, impl, uv, field)
     if impl == "swar":
         args = (plane(), plane())
@@ -313,6 +315,20 @@ def uncoded_time(torch, np, rng) -> dict:
     r = check_mc(torch, np, rng, "K2 all uncoded", 1088, 1920, 16, 16,
                  uv=False, mode_all=0)
     return {"mc_recon_luma": {"ms": r["ms"], "fwd_ms": r["fwd_ms"]}}
+
+
+# blocks of a 1080p luma grid of the segment kernels: 8160 MBs, 8 a block
+K2_BLOCKS = 1020
+
+
+def empty_times(torch, _build) -> dict:
+    """Device ms per launch of a kernel that does nothing, in one block and
+    in a 1080p K2 grid's blocks (256 threads each): the launch's share of
+    the one-MB floor of :func:`one_mb_times`, the rest being the chain of
+    dependent loads."""
+    dev = torch.device("cuda")
+    return {f"{n} blocks": cuda_ms(torch, lambda: _build.empty_kernel(dev, n))
+            for n in (1, K2_BLOCKS)}
 
 
 def window_bytes(torch, sy, sx, ph, H, W, word: int = 1) -> int:
@@ -593,6 +609,7 @@ def main() -> int:
     }
     one_mb = one_mb_times(torch, np, rng)
     uncoded = uncoded_time(torch, np, rng)
+    empty = empty_times(torch, _build)
 
     # 4) end to end through the decoder's entry point, one path at a time
     launches = {}
@@ -616,7 +633,7 @@ def main() -> int:
         "mc_roll_luma": ("mc_roll.cu", f"{mcp}:122"),
         "mc_roll_uv": ("mc_roll.cu", f"{mcp}:245"),
         "mc_swar": ("mc_swar.cu", f"{mcp}:769"),
-        "mc_swar_field": ("mc_swar.cu", f"{mcp}:805"),
+        "mc_swar_field": ("mc_recon.cu", f"{mcp}:805"),
         "mc_row": ("mc_rows.cu", "tools/profile_mc_variants.py:88"),
         "mc_row_packed": ("mc_rows.cu", "tools/profile_mc_variants.py:206"),
     }
@@ -626,7 +643,7 @@ def main() -> int:
                 "launches": launches.get(name, 0), **r}
                for name, r in rec.items()]
     print(json.dumps({"one_mb_ms": one_mb, "uncoded_ms": uncoded,
-                      "card": card}))
+                      "empty_ms": empty, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

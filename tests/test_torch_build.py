@@ -65,57 +65,76 @@ def test_ab_summary_counts_pairs():
     """Medians per side, the parent's interquartile range, and the pairs
     the change read lower in."""
     runs = []
-    sass = {"16x16 bidir=1": "ab"}
+    sass = {"seg 16x16 np=1 bidir=1": "ab"}
     for p, c in ((10.0, 1.0), (12.0, 2.0), (8.0, 9.0), (14.0, 1.5)):
-        runs += [{"root": "P", "stacks": [64], "field_sass": sass, "k": p},
-                 {"root": "C", "stacks": [0], "field_sass": sass, "k": c}]
+        runs += [{"root": "P", "stacks": [64], "control_sass": sass, "k": p},
+                 {"root": "C", "stacks": [0], "control_sass": sass, "k": c}]
     s = ab_kernel_times.summary(runs, "P", "C")
-    assert list(s) == ["k", "field_sass_equal"]
-    assert s["field_sass_equal"] is True
+    assert list(s) == ["k", "control_sass_equal"]
+    assert s["control_sass_equal"] is True
     assert s["k"]["parent_median"] == 11.0
     assert s["k"]["change_median"] == 1.75
     assert s["k"]["change_wins"] == 3 and s["k"]["pairs"] == 4
     assert s["k"]["parent_iqr"] == pytest.approx(13.5 - 8.5)
 
 
-_SASS = {"16x16 bidir=1": "ab", "8x8 bidir=1": "cd"}
+_SASS = {"seg 16x16 np=1 bidir=1": "ab", "swar 8x8 bidir=1": "cd"}
 
 
 @pytest.mark.parametrize("parent_sass,change_sass,equal", [
     (_SASS, dict(_SASS), True),
-    (_SASS, {**_SASS, "8x8 bidir=1": "ce"}, False),
-    (_SASS, {"16x16 bidir=1": "ab"}, False),
+    (_SASS, {**_SASS, "swar 8x8 bidir=1": "ce"}, False),
+    (_SASS, {"seg 16x16 np=1 bidir=1": "ab"}, False),
     ({}, {}, False),
 ], ids=["same", "one-differs", "one-missing", "none-found"])
 def test_ab_summary_field_sass(parent_sass, change_sass, equal):
-    """K4's machine code counts as unchanged only when both sides compiled
-    the same instantiations to the same SASS, and at least one."""
-    runs = [{"root": "P", "stacks": [], "field_sass": parent_sass, "k": 1.0},
-            {"root": "C", "stacks": [], "field_sass": change_sass, "k": 1.0}]
+    """The controls' machine code (K2/K3's frame form, K7) counts as
+    unchanged only when both sides compiled the same instantiations to the
+    same SASS, and at least one."""
+    runs = [{"root": "P", "stacks": [], "control_sass": parent_sass,
+             "k": 1.0},
+            {"root": "C", "stacks": [], "control_sass": change_sass,
+             "k": 1.0}]
     assert ab_kernel_times.summary(runs, "P", "C")[
-        "field_sass_equal"] is equal
+        "control_sass_equal"] is equal
 
 
-def _sass(field_arg, pad, label, op="IADD3"):
-    """A ``cuobjdump -sass`` listing of one frame and one field kernel."""
+def _sass(newer, pad, label, op="IADD3"):
+    """A ``cuobjdump -sass`` listing of the controls (K2's frame form of
+    the segment kernel, K7) and of two field forms (K4, K8), named as an
+    older source (``newer`` False: K4 ``mc_recon_kernel``, K7 and K8
+    ``mc_swar_kernel`` with a FIELD argument) or a newer one (K2, K4 and
+    K8 forms of ``mc_seg_kernel`` by FIELD and RECON, K7 without FIELD)
+    names them."""
     def fn(name, op):
         return (f"\t\tFunction : _ZN3_GN15{name}\n"
                 f"        /*0000*/{pad}{op} R1, R2, R3 ;{pad}/* 0x0001 */\n"
                 f"        /*0010*/{pad}BRA `(.L_x_{label}) ;{pad}/* 0x0002 */\n"
-                f".L_x_{label}:\n        /*0020*/{pad}EXIT ;\n")
-    return ("\n\tcode for sm_90a\n"
-            + fn("mc_recon_kernelILi8ELi8ELb1ELb0EEEvv", "IMAD")
-            + fn(f"mc_recon_kernelILi8ELi8ELb1E{field_arg}EEvv", op))
+                f".L_x_{label}:\n        /*0020*/{pad}EXIT ;\n"
+                f"\t\t..........\n\n\n")
+    seg = "mc_seg_kernelILi16ELi16ELi1ELb1E"
+    swar = "mc_swar_kernelILi8ELi8ELb1E"
+    if newer:     # K2 last: a second listing's header follows its body
+        names = {seg + "Lb1ELb1EEEvv": "LDG", seg + "Lb1ELb0EEEvv": "STG",
+                 swar + "EEvv": "IMAD", seg + "Lb0ELb1EEEvv": op}
+    else:
+        names = {seg + "EEvv": op, swar + "Lb0EEEvv": "IMAD",
+                 "mc_recon_kernelILi16ELi16ELb1EEEvv": "LDG",
+                 swar + "Lb1EEEvv": "STG"}
+    header = "\n\tcode for sm_90a\n"
+    return header + "".join(fn(n, o) for n, o in names.items()) + (
+        header if newer else "")
 
 
 def test_sass_digests_ignore_layout():
-    """Column padding and the file-wide label numbering do not count; an
-    instruction does; a frame instantiation (FIELD 0) is left out, and the
-    keys of sources with and without the FIELD argument agree."""
-    parent = ab_kernel_times.sass_digests(_sass("Lb1E", " " * 19, 3))
-    same = ab_kernel_times.sass_digests(_sass("", " " * 7, 12))
-    other = ab_kernel_times.sass_digests(_sass("", " " * 7, 12, op="IADD"))
-    assert list(parent) == ["8x8 bidir=1"]
+    """Column padding, what follows a function's body and the file-wide
+    label numbering do not count; an instruction does; the field forms are
+    left out, and the keys of older and newer sources agree."""
+    parent = ab_kernel_times.sass_digests(_sass(False, " " * 19, 3))
+    same = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12))
+    other = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12,
+                                               op="IADD"))
+    assert sorted(parent) == ["seg 16x16 np=1 bidir=1", "swar 8x8 bidir=1"]
     assert parent == same
     assert parent != other
 

@@ -1,7 +1,9 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain
 PyTorch version (K2 and K3 on every input kind of :func:`_mc_case`: edge
 windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
-K3, K4, K6, K7 and K8 at the chroma tile of every format,
+K4 and K8 on those and the field kinds: field units at the bottom and
+right edges and at C_1 = -1, every ``sx_r & 3`` at every phase, every MB
+field-predicted; K3, K4, K6, K7 and K8 at the chroma tile of every format,
 K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
 profiler's parity run and the kernel gate.
@@ -54,13 +56,43 @@ def test_idct_kernel_matches_plain():
 # input kinds of the frame forms (:func:`_mc_case`)
 MC_KINDS = ("random", "edges", "sx_phases", "mode7", "extreme_residual",
             "one_mb")
+# input kinds that shape the field tuples (``field=True`` only)
+FIELD_KINDS = ("field_edges", "field_sx_phases", "field_all")
+
+
+def _field_units(t, rng, kind, s, H, W, th, tw, n):
+    """Direction ``s``'s field tuple (C0, sx0, ph0, C1, sx1, ph1) for the
+    field kinds of :func:`_mc_case`, with C_r = 2*syf_r + sel_r - r from
+    field window starts ``syf_r`` in [0, H/2 - th/2] and ``sx_r`` in
+    [0, W - tw], as :func:`mc_fused.mc_field_meta` clamps them."""
+    i = np.arange(n)
+    out = []
+    for r in range(2):
+        syf = rng.integers(0, H // 2 - th // 2 + 1, n)
+        sel = rng.integers(0, 2, n)
+        sx = rng.integers(0, W - tw + 1, n)
+        if kind == "field_edges":
+            # the lowest start: the unit's last row's second tap is frame
+            # row H + sel_r, past the plane
+            syf = np.where(i % 3 != 1, H // 2 - th // 2, syf)
+            sx = np.where(i % 3 != 0, W - tw, sx)
+            if r == 1:                # C_1 = -1 on the others
+                syf = np.where(i % 3 == 1, 0, syf)
+                sel = np.where(i % 3 == 1, 0, sel)
+            ph = (i // 3 + s + r) % 4
+        else:
+            sx = (np.minimum(sx, W - tw - 3) & ~3) + (i + r) % 4
+            ph = (i // 4 + s + r) % 4
+        out += [2 * syf + sel - r, sx, ph]
+    return tuple(t(x.astype(np.int32)) for x in out)
 
 
 def _mc_case(dev, seed, H, W, tile, n_planes, field=False, kind="random"):
     """Random planes and per-MB vectors; ``tile`` is (rows, columns) or a
     square side.  ``field``: field tuples of both directions appended, the
     field bit on about half the MBs.  ``kind`` (one of :data:`MC_KINDS`)
-    shapes the frame vectors and the residual:
+    shapes the frame vectors and the residual, or (one of
+    :data:`FIELD_KINDS`, with ``field``) the field tuples:
 
     * ``random``: window starts and phases from random MVs (clamped by
       ``mc_meta``), modes 0-7 in equal numbers;
@@ -71,7 +103,15 @@ def _mc_case(dev, seed, H, W, tile, n_planes, field=False, kind="random"):
     * ``mode7``: random windows, every MB at mode 7;
     * ``extreme_residual``: random windows and modes, the residual mostly
       at -32768 and 32767;
-    * ``one_mb``: a plane of one MB (``H`` and ``W`` ignored)."""
+    * ``one_mb``: a plane of one MB (``H`` and ``W`` ignored);
+    * ``field_edges``: every MB at mode 15 (field, both directions, coded),
+      units at the lowest field window start (the second tap row of the
+      unit's last row lies past the plane), at ``sx = W - w`` or both, and
+      unit 1 at C_1 = -1 elsewhere, at every phase;
+    * ``field_sx_phases``: mode 15, every ``sx_r & 3`` at every phase for
+      both units, the two units' phases different (needs ``W - w >= 3``);
+    * ``field_all``: random vectors, every MB at mode 15."""
+    assert field or kind not in FIELD_KINDS, kind
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     th, tw = tile if isinstance(tile, tuple) else (tile, tile)
@@ -84,7 +124,7 @@ def _mc_case(dev, seed, H, W, tile, n_planes, field=False, kind="random"):
     mv = t(rng.integers(-64, 64, (n, 2, 2, 2)).astype(np.int16))
     mode = rng.permutation(np.arange(n) % 8)
     if field:
-        mode = mode + 8 * (rng.random(n) < 0.5)
+        field_bit = rng.random(n) < 0.5
     meta = [*mc_fused.mc_meta(*pos, mv[:, 0, 0, 0], mv[:, 0, 0, 1], H, W,
                               th, tw),
             *mc_fused.mc_meta(*pos, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W,
@@ -105,11 +145,16 @@ def _mc_case(dev, seed, H, W, tile, n_planes, field=False, kind="random"):
                 ph = (i // 4 + s) % 4
             meta[3 * s:3 * s + 3] = [t(x.astype(np.int32))
                                      for x in (sy, sx, ph)]
+    if field:
+        mode = np.full(n, 15) if kind in FIELD_KINDS else mode + 8 * field_bit
     meta.append(t(mode.astype(np.int32)))
     if field:
         mvfs = t(rng.integers(0, 2, (n, 2, 2)).astype(np.uint8))
         meta += [mc_fused.mc_field_meta(*pos, mv[:, :, s], mvfs[:, :, s],
                                         H, W, th, tw) for s in range(2)]
+        if kind in ("field_edges", "field_sx_phases"):
+            meta[7:] = [_field_units(t, rng, kind, s, H, W, th, tw, n)
+                        for s in range(2)]
     plane = lambda: t(rng.integers(0, 256, (H, W)).astype(np.uint8))  # noqa
 
     def resid():
@@ -175,13 +220,15 @@ def test_mc_uv_kernel_tiles_match_plain(H, W, tile, kind, bidir):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [False, True])
 @pytest.mark.parametrize("uv", [False, True])
-def test_mc_recon_refuses_misaligned_residual(uv):
-    """K2 and K3 load the residual 16 bytes at a time: a residual view two
-    bytes into its storage raises before any launch."""
+def test_mc_recon_refuses_misaligned_residual(uv, field):
+    """K2, K3 and K4 load the residual 16 bytes at a time: a residual view
+    two bytes into its storage raises before any launch."""
     dev = _require_cuda()
     tile = 8 if uv else 16
-    r0, r1, res, meta = _mc_case(dev, 21, 64, 64, tile, 2 if uv else 1)
+    r0, r1, res, meta = _mc_case(dev, 21, 64, 64, tile, 2 if uv else 1,
+                                 field=field)
     flat = torch.zeros(64 * 64 + 1, dtype=torch.int16, device=dev)
     shifted = flat[1:].view(64, 64)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
@@ -197,10 +244,13 @@ def test_mc_recon_refuses_misaligned_residual(uv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
-def test_mc_field_luma_kernel_matches_plain(bidir):
-    """K4, luma: the field kernel against the plain field-view version."""
+@pytest.mark.parametrize("kind", MC_KINDS + FIELD_KINDS)
+def test_mc_field_luma_kernel_matches_plain(kind, bidir):
+    """K4, luma: the field kernel against the plain field-view version on
+    every input kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 16, 1088, 1920, 16, 1, field=True)
+    r0, r1, res, meta = _mc_case(dev, 16, 1088, 1920, 16, 1, field=True,
+                                 kind=kind)
     before = _build.LAUNCHES["mc_field_luma"]
     got = mc_fused.fused_mc_recon(r0[0], r1[0], res[0], *meta, bidir=bidir)
     want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
@@ -212,19 +262,24 @@ def test_mc_field_luma_kernel_matches_plain(bidir):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS + FIELD_KINDS)
 @pytest.mark.parametrize("H,W,tile", [(544, 960, (8, 8)),
                                       (1088, 960, (16, 8)),
                                       (1088, 1920, (16, 16))])
-def test_mc_field_uv_kernel_matches_plain(H, W, tile, bidir):
-    """K4, chroma, at the chroma tile of every format."""
+def test_mc_field_uv_kernel_matches_plain(H, W, tile, kind, bidir):
+    """K4, chroma, at the chroma tile of every format on every input
+    kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 17, H, W, tile, 2, field=True)
+    r0, r1, res, meta = _mc_case(dev, 17, H, W, tile, 2, field=True,
+                                 kind=kind)
     args = (tuple(r0), tuple(r1), tuple(res), *meta)
+    before = _build.LAUNCHES["mc_field_uv"]
     got = mc_fused.fused_mc_recon_uv(*args, h=tile[0], w=tile[1],
                                      bidir=bidir)
     want = mc_fused.fused_mc_recon_uv_ref(*args, h=tile[0], w=tile[1],
                                           bidir=bidir)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_field_uv"] == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -309,6 +364,31 @@ def test_swar_kernel_matches_plain(H, W, tile, bidir, field):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[counter] == before + 1
     assert got.dtype == torch.int32 and got.shape == (H, W // 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS + FIELD_KINDS)
+@pytest.mark.parametrize("H,W,tile", [(1088, 1920, (16, 16)),
+                                      (544, 960, (8, 8)),
+                                      (1088, 960, (16, 8))])
+def test_swar_field_kernel_matches_plain_on_every_kind(H, W, tile, kind,
+                                                       bidir):
+    """K8 on luma and each chroma tile, on every input kind: words equal to
+    the plain version's."""
+    dev = _require_cuda()
+    r0, r1, _, meta = _mc_case(dev, 22, H, W, tile, 1, field=True,
+                               kind=kind)
+    before = _build.LAUNCHES["mc_swar_field"]
+    got = mc_fused.fused_mc_pred_swar_field(r0[0], r1[0], *meta, h=tile[0],
+                                            w=tile[1], bidir=bidir)
+    want = mc_fused.fused_mc_pred_swar_field_ref(r0[0], r1[0], *meta,
+                                                 h=tile[0], w=tile[1],
+                                                 bidir=bidir)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mc_swar_field"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
 
 

@@ -1,15 +1,19 @@
-"""PyTorch port, the formulation K2's and K3's frame kernels rest on.
+"""PyTorch port, the formulation the segment kernels K2, K3 and K4 rest
+on.
 
 The kernels predict in packed 32-bit words (four pixels each: funnel-shift
 taps and per-byte rounding averages, the function of
-``fused_mc_pred_swar_ref``) and then run an epilogue on the words: the
-int16 residual read as 32-bit pairs, added per pixel in 32-bit arithmetic,
-clipped to [0, 255], zero for uncoded MBs, bytes packed back into words.
-Here that chain, on the CPU at a small size, equals the unpacked plain
-versions ``fused_mc_recon_ref`` / ``fused_mc_recon_uv_ref`` at every tile
-and on every input kind of ``test_torch_gpu._mc_case`` (edge windows,
-every ``sx & 3``, every mode, extreme residuals, one-MB planes).  Both
-plain versions are held against the JAX package's Pallas kernels in
+``fused_mc_pred_swar_ref``, or with field motion of
+``fused_mc_pred_swar_field_ref``, which is K8's) and then run an epilogue
+on the words: the int16 residual read as 32-bit pairs, added per pixel in
+32-bit arithmetic, clipped to [0, 255], zero for uncoded MBs, bytes packed
+back into words.  Here that chain, on the CPU at a small size, equals the
+unpacked plain versions ``fused_mc_recon_ref`` / ``fused_mc_recon_uv_ref``
+at every tile and on every input kind of ``test_torch_gpu._mc_case`` (edge
+windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
+with the field tuples also field units at the edges and at C_1 = -1, every
+``sx_r & 3`` at every phase, every MB field-predicted).  The plain
+versions are held against the JAX package's Pallas kernels in
 ``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then the wrappers'
 alignment checks, which run before any launch."""
 import numpy as np
@@ -17,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_gpu import MC_KINDS, _mc_case  # noqa: E402
+from test_torch_gpu import FIELD_KINDS, MC_KINDS, _mc_case  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
 
 # (tile rows, columns), planes per call: K2 luma, K3 at each chroma tile
@@ -65,6 +69,30 @@ def test_word_prediction_and_epilogue_equal_the_recon(tile, planes, kind,
         assert torch.equal(_epilogue(words, res[k], meta[6], h, w), want[k])
 
 
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS + FIELD_KINDS)
+@pytest.mark.parametrize("tile,planes", TILES)
+def test_field_word_prediction_and_epilogue_equal_the_recon(tile, planes,
+                                                            kind, bidir):
+    """K4's formulation: the field word prediction (K8's plain version)
+    plus the epilogue equals the unpacked plain recon given the field
+    tuples."""
+    h, w = tile
+    r0, r1, res, meta = _mc_case("cpu", 90 + h + w + planes, MBH * h,
+                                 MBW * w, tile, planes, field=True, kind=kind)
+    if planes == 1:
+        want = (mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta,
+                                            h=h, w=w, bidir=bidir),)
+    else:
+        want = mc_fused.fused_mc_recon_uv_ref(tuple(r0), tuple(r1),
+                                              tuple(res), *meta, h=h, w=w,
+                                              bidir=bidir)
+    for k in range(planes):
+        words = mc_fused.fused_mc_pred_swar_field_ref(
+            r0[k], r1[k], *meta, h=h, w=w, bidir=bidir)
+        assert torch.equal(_epilogue(words, res[k], meta[6], h, w), want[k])
+
+
 @pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8)])
 def test_mc_case_kinds_cover_what_they_claim(tile):
     """The input kinds reach what the kernels' tests rely on: windows at
@@ -96,11 +124,44 @@ def test_mc_case_kinds_cover_what_they_claim(tile):
     res, m = case("one_mb")
     assert res.shape == (h, w) and all(len(x) == 1 for x in m)
 
+    def units(kind):
+        """Mode and, per direction and unit r, (C_r, sx_r, ph_r)."""
+        _, _, _, meta = _mc_case("cpu", 5, H, W, tile, 1, field=True,
+                                 kind=kind)
+        return meta[6].numpy(), [[[x.numpy() for x in meta[7 + s][3 * r:
+                                                                  3 * r + 3]]
+                                  for r in range(2)] for s in range(2)]
+
+    for kind in FIELD_KINDS:
+        mode, dirs = units(kind)
+        assert set(mode) == {15}
+        for r, (c, sx, ph) in (u for d in dirs for u in enumerate(d)):
+            # a start mc_field_meta can give: C_r + r = 2*syf_r + sel_r
+            assert (c + r >= 0).all() and ((c + r) >> 1).max() <= (H - h) // 2
+            assert sx.min() >= 0 and sx.max() <= W - w
+    mode, dirs = units("field_edges")
+    for r, (c, sx, ph) in (u for d in dirs for u in enumerate(d)):
+        # the second tap row of the unit's last tile row, h - 2 + r
+        low = c + h - 2 + r + 2 >= H
+        at = set(zip(low, sx == W - w, ph))
+        assert at >= {(e, f, p) for e, f in ((1, 0), (0, 1), (1, 1))
+                      for p in range(4)}
+        if r == 1:
+            assert set(ph[c == -1]) == set(range(4))
+    mode, dirs = units("field_sx_phases")
+    for (c0, sx0, ph0), (c1, sx1, ph1) in dirs:
+        assert (ph0 != ph1).all()
+        for sx, ph in ((sx0, ph0), (sx1, ph1)):
+            assert set(zip(sx & 3, ph)) == {(a, p) for a in range(4)
+                                           for p in range(4)}
+    _, _, _, meta = _mc_case("cpu", 5, H, W, tile, 1, field=True)
+    assert set(meta[6].numpy() >> 3) == {0, 1}
+
 
 def _recon_args(entry, fault):
-    """Arguments of ``_launch`` for a frame form of K2 (luma) or K3 (U+V)
-    on CPU tensors, with one input misaligned as ``fault`` says."""
-    uv = entry == "mp2v_mc_recon_uv"
+    """Arguments of ``_launch`` for K2 or K4 (luma) or K3 or K4 (U+V) on
+    CPU tensors, with one input misaligned as ``fault`` says."""
+    uv = entry.endswith("_uv")
     h = w = 8 if uv else 16
     H = W = 32
     ref = torch.zeros((H, W), dtype=torch.uint8)
@@ -112,7 +173,8 @@ def _recon_args(entry, fault):
     else:                             # a reference width not divisible by 4
         ref = torch.zeros((H, W + 2), dtype=torch.uint8)
     n = (H // h) * (W // w)
-    meta = tuple(torch.zeros(n, dtype=torch.int32) for _ in range(7))
+    n_meta = 19 if "field" in entry else 7    # field tuples of both dirs
+    meta = tuple(torch.zeros(n, dtype=torch.int32) for _ in range(n_meta))
     k = 2 if uv else 1
     return ((ref,) * k, (ref,) * k, (res,) * k, meta, h, w)
 
@@ -120,11 +182,12 @@ def _recon_args(entry, fault):
 @pytest.mark.parametrize("fault,match", [("residual", "16-byte"),
                                          ("reference", "4-byte"),
                                          ("width", "divisible by 4")])
-@pytest.mark.parametrize("entry", ["mp2v_mc_recon_luma", "mp2v_mc_recon_uv"])
+@pytest.mark.parametrize("entry", ["mp2v_mc_recon_luma", "mp2v_mc_recon_uv",
+                                   "mp2v_mc_field_luma", "mp2v_mc_field_uv"])
 def test_recon_kernels_refuse_misaligned_inputs(entry, fault, match):
-    """K2 and K3 read the references as words and the residual 16 bytes at
-    a time: the launcher's checks raise before it loads the kernel library
-    (so they run here, on CPU tensors) and count no launch."""
+    """K2, K3 and K4 read the references as words and the residual 16
+    bytes at a time: the launcher's checks raise before it loads the kernel
+    library (so they run here, on CPU tensors) and count no launch."""
     refs0, refs1, ress, meta, h, w = _recon_args(entry, fault)
     assert all(x.is_contiguous() for x in (*refs0, *ress))
     before = dict(_build.LAUNCHES)

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "mp2v_mc_row": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     # K10: word plane, Hp, words per row, sy, sxq, rb, ph, out, H, W, stream
     "mp2v_mc_row_packed": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # a kernel that does nothing: blocks, stream
+    "mp2v_empty": [_I, _P],
 }
 
 _lib = None
@@ -135,3 +137,12 @@ def stream_handle(device) -> int:
     """Raw handle of PyTorch's current CUDA stream on ``device``."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def empty_kernel(device, blocks: int = 1) -> None:
+    """Launch the library's empty kernel, ``blocks`` blocks of the MC
+    segment kernels' 256 threads, on the current stream of ``device``: its
+    device time is what a launch costs with no work in it."""
+    check("mp2v_empty", kernel_library().mp2v_empty(
+        blocks, stream_handle(device)))
+    LAUNCHES["empty"] += 1

@@ -21,9 +21,10 @@ prediction: kernel K4, the field form of K2/K3 (replaces
 ``_field_pred_mxu``).  Without them bit 8 is ignored.  Reference planes
 are unpadded ``(Hr, Wr)`` uint8; taps beyond them read 0.  A CPU tensor
 takes the plain version (``*_ref``), built from :mod:`.mc`; a CUDA tensor
-takes the kernel; any other device raises.  The frame forms of K2 and K3
-read the references as 32-bit words and the residual 8 pixels at a time:
-on the card they raise unless the references are 4-byte aligned with
+takes the kernel; any other device raises.  K2, K3 and K4 are forms of one
+kernel (``csrc/mc_recon.cu``, one thread per 8-pixel row segment): they
+read the references as 32-bit words and the residual 8 pixels at a time,
+so on the card they raise unless the references are 4-byte aligned with
 ``Wr % 4 == 0`` and each residual plane is 16-byte aligned.
 
 The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
@@ -34,9 +35,10 @@ The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
   ``fused_mc_recon_uv``) — K2's and K3's function, frame prediction only,
   through a window staged in shared memory;
 * ``swar``: :func:`fused_mc_pred_swar` (K7, ``csrc/mc_swar.cu``) and its
-  field form :func:`fused_mc_pred_swar_field` (K8) — the prediction alone,
-  four pixels per 32-bit word (:func:`pack_ref_words`), one component per
-  call, no residual and no coded bit.
+  field form :func:`fused_mc_pred_swar_field` (K8, a form of K4's segment
+  kernel in ``csrc/mc_recon.cu``) — the prediction alone, four pixels per
+  32-bit word (:func:`pack_ref_words`), one component per call, no
+  residual and no coded bit.
 """
 from __future__ import annotations
 
@@ -296,12 +298,14 @@ _TILES = {
     "mp2v_mc_swar_field": _CHROMA,
 }
 # entry points that read the reference planes as 32-bit words
-_WORD_READS = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_roll_luma",
-               "mp2v_mc_roll_uv", "mp2v_mc_swar", "mp2v_mc_swar_field"}
+_WORD_READS = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
+               "mp2v_mc_field_uv", "mp2v_mc_roll_luma", "mp2v_mc_roll_uv",
+               "mp2v_mc_swar", "mp2v_mc_swar_field"}
 # entry points that load the residual 16 bytes and store the output 8 bytes
 # at a time (one 8-pixel row segment per thread); the outputs are allocated
 # by _launch, so only the residual is checked
-_VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv"}
+_VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
+              "mp2v_mc_field_uv"}
 
 
 def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):

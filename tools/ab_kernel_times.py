@@ -1,6 +1,6 @@
-"""A/B of the IDCT and the ``mxu`` MC kernels (K1–K4) between two
-checkouts of the port, on one card, by ``chip_smoke.py``'s own
-measurement code.
+"""A/B of the IDCT and the segment-kernel MC forms (K1–K4, K8, with K7
+as a control) between two checkouts of the port, on one card, by
+``chip_smoke.py``'s own measurement code.
 
     python3 tools/ab_kernel_times.py PARENT_ROOT [CHANGE_ROOT]
         [--pairs N] [--out DIR]
@@ -13,24 +13,28 @@ which side runs first (P C, C P, P C, ...).  Each process
   build (``_build.build(force=True)``, then loading the library);
 * compiles its ``csrc/mc_recon.cu`` with ``-Xptxas -v`` and keeps the
   stack size that ``ptxas`` reports for each kernel instantiation;
-* compiles the same file to a cubin and keeps a digest of the SASS
-  (``cuobjdump -sass``) of each instantiation of the field kernel K4,
-  ``mc_recon_kernel``, by its tile and ``bidir`` (:func:`sass_digests`);
+* compiles ``csrc/mc_recon.cu`` and ``csrc/mc_swar.cu`` to cubins and
+  keeps a digest of the SASS (``cuobjdump -sass``) of each instantiation
+  of the controls (:func:`sass_digests`): the frame forms K2/K3 of the
+  segment kernel ``mc_seg_kernel`` and K7's ``mc_swar_kernel``;
 * times K1 (``chip_smoke.check_idct``: 131,072 blocks) and, by
   ``chip_smoke.check_mc`` (``chip_smoke.mc_inputs``, device time per call
   by ``chip_smoke.cuda_ms``, each form checked against its plain version
   first), bidir and forward-only: K2 (1088x1920 luma), K3 at every chroma
   tile (2 x 544x960 at 8x8, 2 x 1088x960 at 16x8, 2 x 1088x1920 at
-  16x16), K4 luma and U+V at 16x8 (the field form: a control wherever
-  the two sides share its code), and K2 and K3 on a plane of one MB
-  (``chip_smoke.one_mb_times``: the fixed cost of a launch).
+  16x16), K4 luma and U+V at 16x8, K7 luma, K8 luma and one 1088x960
+  plane at 16x8, each with the field bit on half the MBs; K4 luma and K8
+  luma again with it on the interlaced fixture's share (9,320 of 130,560
+  MBs); and K2 and K3 on a plane of one MB (``chip_smoke.one_mb_times``:
+  the fixed cost of a launch).
 
 Every run prints one JSON line; the summary gives, for each reading, the
 median of each side, the parent's interquartile range, whether the
 medians lie within it of each other, and the pairs in which the change
-read lower; and ``field_sass_equal``: whether both sides compiled K4 to
-the same machine code.  ``--out`` also keeps each process's full output there.
-Needs one CUDA card and ``nvcc``; imports nothing of JAX.
+read lower; and ``control_sass_equal``: whether both sides compiled the
+controls (K2, K3, K7) to the same machine code.  ``--out`` also keeps each
+process's full output there.  Needs one CUDA card and ``nvcc``; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -47,13 +51,23 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (reading, plane rows, columns, tile rows, columns, U+V, field form)
-MC = (("K2 luma", 1088, 1920, 16, 16, False, False),
-      ("K3 uv 8x8", 544, 960, 8, 8, True, False),
-      ("K3 uv 16x8", 1088, 960, 16, 8, True, False),
-      ("K3 uv 16x16", 1088, 1920, 16, 16, True, False),
-      ("K4 luma", 1088, 1920, 16, 16, False, True),
-      ("K4 uv 16x8", 1088, 960, 16, 8, True, True))
+# field-predicted MBs of tests/data/interlaced_1080_422_16.m2v
+FIXTURE_FIELD_SHARE = 9320 / 130560
+# (reading, plane rows, columns, tile rows, columns, U+V, field form,
+# MP2V_MC_IMPL, share of field MBs)
+MC = (("K2 luma", 1088, 1920, 16, 16, False, False, "mxu", 0.5),
+      ("K3 uv 8x8", 544, 960, 8, 8, True, False, "mxu", 0.5),
+      ("K3 uv 16x8", 1088, 960, 16, 8, True, False, "mxu", 0.5),
+      ("K3 uv 16x16", 1088, 1920, 16, 16, True, False, "mxu", 0.5),
+      ("K4 luma", 1088, 1920, 16, 16, False, True, "mxu", 0.5),
+      ("K4 uv 16x8", 1088, 960, 16, 8, True, True, "mxu", 0.5),
+      ("K7 luma", 1088, 1920, 16, 16, False, False, "swar", 0.5),
+      ("K8 luma", 1088, 1920, 16, 16, False, True, "swar", 0.5),
+      ("K8 16x8", 1088, 960, 16, 8, False, True, "swar", 0.5),
+      ("K4 luma fixture share", 1088, 1920, 16, 16, False, True, "mxu",
+       FIXTURE_FIELD_SHARE),
+      ("K8 luma fixture share", 1088, 1920, 16, 16, False, True, "swar",
+       FIXTURE_FIELD_SHARE))
 # chip_smoke.one_mb_times' forms -> their readings
 ONE_MB = {"mc_recon_luma": "K2 one MB", "mc_recon_uv": "K3 one MB"}
 
@@ -85,43 +99,63 @@ def ptxas_stacks(nvcc: str, root: str) -> list:
     return [int(m) for m in found]
 
 
-def field_sass(nvcc: str, root: str) -> dict:
-    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu``, compiled to
-    a cubin as the build compiles it."""
-    src = os.path.join(root, "tiny_mp2v_dec_tpu_torch", "csrc", "mc_recon.cu")
+def control_sass(nvcc: str, root: str) -> dict:
+    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu`` and
+    ``csrc/mc_swar.cu``, each compiled to a cubin as the build compiles
+    it."""
+    sass = ""
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "mc_recon.cubin")
-        subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-cubin", "-o", cubin, src],
-            capture_output=True, text=True, check=True)
-        sass = subprocess.run(
-            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-             cubin], capture_output=True, text=True, check=True).stdout
+        for name in ("mc_recon", "mc_swar"):
+            cubin = os.path.join(tmp, name + ".cubin")
+            subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-cubin", "-o", cubin,
+                 os.path.join(root, "tiny_mp2v_dec_tpu_torch", "csrc",
+                              name + ".cu")],
+                capture_output=True, text=True, check=True)
+            sass += subprocess.run(
+                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                 cubin], capture_output=True, text=True, check=True).stdout
     return sass_digests(sass)
 
 
+# the controls' mangled names: the segment kernel's frame form K2/K3 (tile
+# rows, columns, planes, bidir; a newer source adds FIELD 0 and RECON 1)
+# and K7 (tile rows, columns, bidir; an older source adds FIELD 0)
+_CONTROLS = (
+    (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E(Lb0ELb1E)?E",
+     "seg {}x{} np={} bidir={}"),
+    (r"mc_swar_kernelILi(\d+)ELi(\d+)ELb(\d)E(Lb0E)?E",
+     "swar {}x{} bidir={}"))
+
+
 def sass_digests(sass: str) -> dict:
-    """sha256 of each instantiation of the field kernel ``mc_recon_kernel``
-    in ``cuobjdump -sass`` output, keyed by its first three template
-    arguments (tile rows, columns, bidir): the lines of its body — each
-    instruction and its encoding — without the function's name line, runs
-    of blanks (cuobjdump pads columns to the file's longest instruction)
-    or the file-wide numbering of branch labels."""
+    """sha256 of each instantiation of the controls in ``cuobjdump -sass``
+    output (:data:`_CONTROLS`: K2/K3's frame form of ``mc_seg_kernel``,
+    K7's ``mc_swar_kernel``), keyed by its kernel and the template
+    arguments the two sides share: the lines of its body up to
+    cuobjdump's closing line of dots — each instruction and its encoding —
+    without the function's name line, what follows the body (after the
+    last function of a listing, the next listing's header), runs of
+    blanks (cuobjdump pads columns to the file's longest instruction) or
+    the file-wide numbering of branch labels.  Other instantiations (K4's
+    and K8's forms of ``mc_seg_kernel``, or an older source's K4
+    ``mc_recon_kernel`` and K8) are left out."""
     out = {}
     for fn in sass.split("Function : ")[1:]:
         name, _, body = fn.partition("\n")
-        # an older source's fourth argument FIELD: 1 is the field form
-        m = re.search(r"mc_recon_kernelILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?E",
-                      name)
-        if m and m[4] != "0":
-            labels = {}
-            body = re.sub(r"\.L_x_\d+", lambda x: labels.setdefault(
-                x[0], f".L{len(labels)}"), body)
-            body = "\n".join(" ".join(line.split())
-                             for line in body.splitlines())
-            out[f"{m[1]}x{m[2]} bidir={m[3]}"] = hashlib.sha256(
-                body.encode()).hexdigest()
+        # the function ends at cuobjdump's line of dots
+        body = re.split(r"\n\s*\.{4,}\s*\n", body + "\n")[0]
+        for pattern, key in _CONTROLS:
+            m = re.search(pattern, name)
+            if m:
+                labels = {}
+                body = re.sub(r"\.L_x_\d+", lambda x: labels.setdefault(
+                    x[0], f".L{len(labels)}"), body)
+                body = "\n".join(" ".join(line.split())
+                                 for line in body.splitlines())
+                out[key.format(*m.groups()[:-1])] = hashlib.sha256(
+                    body.encode()).hexdigest()
     return out
 
 
@@ -142,12 +176,12 @@ def run_one(root: str) -> dict:
     _build.kernel_library()
     rec = {"root": root, "build_s": time.perf_counter() - t0,
            "stacks": ptxas_stacks(_build.nvcc_path(), root),
-           "field_sass": field_sass(_build.nvcc_path(), root)}
+           "control_sass": control_sass(_build.nvcc_path(), root)}
     rng = np.random.default_rng(2024)
     rec["K1 idct8x8"] = smoke.check_idct(torch, np, rng)["ms"]
-    for name, H, W, th, tw, uv, field in MC:
+    for name, H, W, th, tw, uv, field, impl, share in MC:
         r = smoke.check_mc(torch, np, rng, name, H, W, th, tw, uv=uv,
-                           field=field)
+                           field=field, impl=impl, field_share=share)
         rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
     for form, r in smoke.one_mb_times(torch, np, rng).items():
         name = ONE_MB[form]
@@ -162,7 +196,7 @@ def summary(runs: list, parent: str, change: str) -> dict:
     side = {r: [x for x in runs if x["root"] == r] for r in (parent, change)}
     out = {}
     for key in runs[0]:
-        if key in ("root", "stacks", "field_sass"):
+        if key in ("root", "stacks", "control_sass"):
             continue
         p = [x[key] for x in side[parent]]
         c = [x[key] for x in side[change]]
@@ -173,8 +207,8 @@ def summary(runs: list, parent: str, change: str) -> dict:
                     "within_parent_iqr": abs(cm - pm) <= q[2] - q[0],
                     "change_wins": sum(b < a for a, b in zip(p, c)),
                     "pairs": min(len(p), len(c))}
-    out["field_sass_equal"] = bool(runs[0]["field_sass"]) and all(
-        x["field_sass"] == runs[0]["field_sass"] for x in runs)
+    out["control_sass_equal"] = bool(runs[0]["control_sass"]) and all(
+        x["control_sass"] == runs[0]["control_sass"] for x in runs)
     return out
 
 
