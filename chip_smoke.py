@@ -11,10 +11,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: K1 (IDCT), K2 (luma MC+recon), K3 (U+V MC+recon, at the
    chroma tile of every format: 8x8, 16x8, 16x16), K4 (their field form:
    luma 16x16, chroma at every tile), K5 and K6 (the same function through
-   a window staged in shared memory, ``MP2V_MC_IMPL=roll``: luma, and U+V
+   aligned window words loaded once, ``MP2V_MC_IMPL=roll``: luma, and U+V
    at every chroma tile), K7 and K8 (packed prediction, four pixels per
    word, frame and field form, ``MP2V_MC_IMPL=swar``: one component per
-   call, luma and one chroma plane at every tile), each on the card at the
+   call, luma and one chroma plane at every tile; and K7's picture form,
+   the three components of a picture in one launch, at 4:2:0, 4:2:2 and
+   4:4:4), each on the card at the
    shapes a 1080-line chunk gives it, with ``bidir`` True and False,
    compared with its plain PyTorch version on the same inputs — exact
    equality, as all arithmetic is integer — and timed against it (device
@@ -22,8 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whole-plane prediction, bytes and 4-pixel words) at the profiler's
    1080p inputs and again with every window at the bottom and right edges;
    then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
-   plane of uncoded MBs (:func:`uncoded_time`) and a kernel that does
-   nothing (:func:`empty_times`);
+   plane of uncoded MBs (:func:`uncoded_time`), K2, K7 and K8 on a plane of
+   MBs that all predict in both directions (:func:`mode7_times`) and a
+   kernel that does nothing (:func:`empty_times`);
 4. end to end, five paths through ``MP2VDecoder`` on ``cuda``: a
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
@@ -45,7 +48,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The line before the last is the kernels' JSON record: per kernel its
 launches on its path, its error and device time against its plain
 version, and its bound (:func:`bound`); the line before it K2's and K3's
-one-MB times, K2's uncoded time and the empty kernel's; the last line is
+one-MB times, K2's uncoded time, the all-mode-7 times and the empty
+kernel's; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -65,8 +69,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
 DATA = os.path.join(REPO, "tests", "data")
 # end-to-end paths: (fixture, MP2V_MC_IMPL) -> the launches of its decode
-# (one chunk of 16 pictures: K1 once, the two-plane MC kernels once per
-# picture, the SWAR kernels once per component per picture)
+# (one chunk of 16 pictures: K1 once, the two-plane MC kernels and K7's
+# picture form once per picture, K8 once per component per picture)
 PATHS = {
     ("bench_1080p_420_16", "mxu"): {
         "idct8x8": 1, "mc_recon_luma": 16, "mc_recon_uv": 16},
@@ -74,10 +78,13 @@ PATHS = {
         "idct8x8": 1, "mc_field_luma": 16, "mc_field_uv": 16},
     ("bench_1080p_420_16", "roll"): {
         "idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16},
-    ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar": 48},
+    ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar_yuv": 16},
     ("interlaced_1080_422_16", "swar"): {"idct8x8": 1, "mc_swar_field": 48},
 }
-MC_KERNELS = {k for counts in PATHS.values() for k in counts} - {"idct8x8"}
+# every MC kernel's counter: the paths' and K7's one-component form, which
+# no path launches
+MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
+              | {"mc_swar"}) - {"idct8x8"}
 TIMED_RUNS = 20
 # the card's peaks for the bound (H100 SXM data sheet): HBM bytes and
 # non-tensor arithmetic per ms; the data sheet lists no rate for integer
@@ -279,13 +286,87 @@ def check_mc(torch, np, rng, name, H, W, th, tw, uv: bool,
     return out
 
 
-def check_tiles(torch, np, rng, name, planes, main, **kw):
-    """:func:`check_mc` on each (label, tile, H, W) of ``planes``.  The
-    record keeps the times of plane ``main`` (the one the main path gives
-    the kernel), every plane's times under ``tiles`` and the largest
-    error of all."""
-    recs = {label: check_mc(torch, np, rng, f"{name} {label}", H, W, *tile,
+def swar_yuv_read_bytes(torch, meta_y, meta_c, Hc: int, Wc: int, th: int,
+                        tw: int) -> int:
+    """Input bytes a bidir call of K7's picture form needs: the three
+    components' :func:`mc_read_bytes` — luma 16x16 on the (Hc*16/th,
+    Wc*16/tw) plane with ``meta_y``, U and V (th x tw) on (Hc, Wc) planes
+    sharing ``meta_c`` — with the mode vector, which all three share,
+    counted once."""
+    luma = mc_read_bytes(torch, meta_y, Hc * 16 // th, Wc * 16 // tw, 16, 16,
+                         n_planes=1, field=False, recon=False)
+    chroma = mc_read_bytes(torch, meta_c, Hc, Wc, th, tw, n_planes=2,
+                           field=False, recon=False)
+    return luma + chroma - 4 * meta_y[6].numel()
+
+
+def check_swar_yuv(torch, np, rng, label, tile, Hc, Wc):
+    """K7's picture form on one picture with (Hc, Wc) chroma planes of
+    ``tile`` MBs (luma 16x16 on the same MB grid), random vectors per
+    component and one mode vector, against its plain version, ``bidir`` True
+    and False; the record of :func:`check_mc`.  In a checkout without the
+    picture form (``tools/ab_kernel_times.py`` runs this on other
+    checkouts) the kernel side is the three one-component launches it
+    replaces, timed as one callable."""
+    from tiny_mp2v_dec_tpu_torch.ops import mc_fused
+    th, tw = tile
+    Hy, Wy = Hc * 16 // th, Wc * 16 // tw
+    plane_y, _, meta_y = mc_inputs(torch, np, rng, Hy, Wy, 16, 16, False)
+    plane_c, _, meta_c = mc_inputs(torch, np, rng, Hc, Wc, th, tw, False)
+    mode = meta_y[6]
+    meta_c = [*meta_c[:6], mode]
+    ref0 = (plane_y(), plane_c(), plane_c())
+    ref1 = (plane_y(), plane_c(), plane_c())
+    comps = ((16, 16, meta_y), (th, tw, meta_c), (th, tw, meta_c))
+    yuv = getattr(mc_fused, "fused_mc_pred_swar_yuv", None)
+    name = f"K7 mc_swar_yuv {label}"
+    out = {}
+    for bidir in (True, False):
+        def per_component(fn):
+            return tuple(fn(r0, r1, *m, h=h, w=w, bidir=bidir)
+                         for r0, r1, (h, w, m) in zip(ref0, ref1, comps))
+
+        def kern():
+            if yuv is None:
+                return per_component(mc_fused.fused_mc_pred_swar)
+            return yuv(ref0, ref1, meta_y[:6], meta_c[:6], mode, h=th, w=tw,
+                       bidir=bidir)
+
+        def plain():
+            return per_component(mc_fused.fused_mc_pred_swar_ref)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, mc_fused.unpack_words(g),
+                              mc_fused.unpack_words(r))
+                  for g, r in zip(got, ref))
+        if err or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"{name} bidir={bidir} differs from its plain version "
+                 f"(max abs err {err})")
+        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+        print(f"{name} bidir={bidir}: {Hy}x{Wy} + 2 x {Hc}x{Wc} in {th}x{tw} "
+              f"tiles, equal to plain; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        if bidir:
+            read = swar_yuv_read_bytes(torch, meta_y, meta_c, Hc, Wc, th, tw)
+            out = {"ms": ms, "plain_ms": plain_ms,
+                   **bound((), got, OPS_PER_OUT["swar"], read)}
+        else:
+            out["fwd_ms"] = ms
+        out["max_abs_err"] = max(out.get("max_abs_err", 0), err)
+    return out
+
+
+def check_tiles(torch, np, rng, name, planes, main, check=None, **kw):
+    """:func:`check_mc` (or ``check``, called as :func:`check_swar_yuv`) on
+    each (label, tile, H, W) of ``planes``.  The record keeps the times of
+    plane ``main`` (the one the main path gives the kernel), every plane's
+    times under ``tiles`` and the largest error of all."""
+    if check is None:
+        def check(torch, np, rng, label, tile, H, W):
+            return check_mc(torch, np, rng, f"{name} {label}", H, W, *tile,
                             **kw)
+    recs = {label: check(torch, np, rng, label, tile, H, W)
             for label, tile, H, W in planes}
     rec = dict(recs[main])
     rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
@@ -315,6 +396,25 @@ def uncoded_time(torch, np, rng) -> dict:
     r = check_mc(torch, np, rng, "K2 all uncoded", 1088, 1920, 16, 16,
                  uv=False, mode_all=0)
     return {"mc_recon_luma": {"ms": r["ms"], "fwd_ms": r["fwd_ms"]}}
+
+
+def mode7_times(torch, np, rng) -> dict:
+    """K2, K7 (one component) and K8 (no MB field-predicted) on a 1088x1920
+    luma plane with every MB at mode 7 (coded, both directions), checked
+    like every form: device ms per call.  With modes drawn evenly
+    (:func:`mc_inputs`) the recon kernels predict only coded MBs, 4 uses of
+    a direction in 8 MBs, and the SWAR kernels, which ignore the coded bit,
+    every MB with a direction bit, 8 in 8; at mode 7 all three predict the
+    same windows, and K2 loads the residual on top."""
+    forms = (("mc_recon_luma", "K2 all mode 7", "mxu", False),
+             ("mc_swar", "K7 all mode 7", "swar", False),
+             ("mc_swar_field", "K8 all mode 7", "swar", True))
+    out = {}
+    for name, label, impl, field in forms:
+        r = check_mc(torch, np, rng, label, 1088, 1920, 16, 16, uv=False,
+                     field=field, impl=impl, mode_all=7, field_share=0.0)
+        out[name] = {"ms": r["ms"], "fwd_ms": r["fwd_ms"]}
+    return out
 
 
 # blocks of a 1080p luma grid of the segment kernels: 8160 MBs, 8 a block
@@ -600,8 +700,14 @@ def main() -> int:
                                  1088, 1920, 16, 16, uv=False, impl="roll"),
         "mc_roll_uv": check_tiles(torch, np, rng, "K6 mc_roll_uv", CHROMA,
                                   "4:2:0", uv=True, impl="roll"),
-        "mc_swar": check_tiles(torch, np, rng, "K7 mc_swar", LUMA + CHROMA,
-                               "luma", uv=False, impl="swar"),
+        # K7: the picture form, which the path launches, with the
+        # one-component form's record under "component"
+        "mc_swar_yuv": {
+            **check_tiles(torch, np, rng, "K7 mc_swar_yuv", CHROMA, "4:2:0",
+                          check=check_swar_yuv),
+            "component": check_tiles(torch, np, rng, "K7 mc_swar",
+                                     LUMA + CHROMA, "luma", uv=False,
+                                     impl="swar")},
         "mc_swar_field": check_tiles(torch, np, rng, "K8 mc_swar_field",
                                      LUMA + CHROMA, "luma", uv=False,
                                      field=True, impl="swar"),
@@ -609,6 +715,7 @@ def main() -> int:
     }
     one_mb = one_mb_times(torch, np, rng)
     uncoded = uncoded_time(torch, np, rng)
+    mode7 = mode7_times(torch, np, rng)
     empty = empty_times(torch, _build)
 
     # 4) end to end through the decoder's entry point, one path at a time
@@ -632,7 +739,7 @@ def main() -> int:
         "mc_field_uv": ("mc_recon.cu", f"{mcp}:353"),
         "mc_roll_luma": ("mc_roll.cu", f"{mcp}:122"),
         "mc_roll_uv": ("mc_roll.cu", f"{mcp}:245"),
-        "mc_swar": ("mc_swar.cu", f"{mcp}:769"),
+        "mc_swar_yuv": ("mc_swar.cu", f"{mcp}:769"),
         "mc_swar_field": ("mc_recon.cu", f"{mcp}:805"),
         "mc_row": ("mc_rows.cu", "tools/profile_mc_variants.py:88"),
         "mc_row_packed": ("mc_rows.cu", "tools/profile_mc_variants.py:206"),
@@ -643,7 +750,7 @@ def main() -> int:
                 "launches": launches.get(name, 0), **r}
                for name, r in rec.items()]
     print(json.dumps({"one_mb_ms": one_mb, "uncoded_ms": uncoded,
-                      "empty_ms": empty, "card": card}))
+                      "mode7_ms": mode7, "empty_ms": empty, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -65,47 +65,51 @@ def test_ab_summary_counts_pairs():
     """Medians per side, the parent's interquartile range, and the pairs
     the change read lower in."""
     runs = []
-    sass = {"seg 16x16 np=1 bidir=1": "ab"}
+    sass = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab"}
     for p, c in ((10.0, 1.0), (12.0, 2.0), (8.0, 9.0), (14.0, 1.5)):
-        runs += [{"root": "P", "stacks": [64], "control_sass": sass, "k": p},
-                 {"root": "C", "stacks": [0], "control_sass": sass, "k": c}]
+        runs += [{"root": "P", "card": "H100, 700.00 W", "stacks": [64],
+                  "control_sass": sass, "k": p},
+                 {"root": "C", "card": "H100, 700.00 W", "stacks": [0],
+                  "control_sass": sass, "k": c}]
     s = ab_kernel_times.summary(runs, "P", "C")
-    assert list(s) == ["k", "control_sass_equal"]
+    assert list(s) == ["k", "control_sass_equal", "cards"]
     assert s["control_sass_equal"] is True
+    assert s["cards"] == ["H100, 700.00 W"]
     assert s["k"]["parent_median"] == 11.0
     assert s["k"]["change_median"] == 1.75
     assert s["k"]["change_wins"] == 3 and s["k"]["pairs"] == 4
     assert s["k"]["parent_iqr"] == pytest.approx(13.5 - 8.5)
 
 
-_SASS = {"seg 16x16 np=1 bidir=1": "ab", "swar 8x8 bidir=1": "cd"}
+_SASS = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab",
+         "roll uv 8x8 bidir=1": "cd"}
 
 
 @pytest.mark.parametrize("parent_sass,change_sass,equal", [
     (_SASS, dict(_SASS), True),
-    (_SASS, {**_SASS, "swar 8x8 bidir=1": "ce"}, False),
-    (_SASS, {"seg 16x16 np=1 bidir=1": "ab"}, False),
+    (_SASS, {**_SASS, "roll uv 8x8 bidir=1": "ce"}, False),
+    (_SASS, {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab"}, False),
     ({}, {}, False),
 ], ids=["same", "one-differs", "one-missing", "none-found"])
 def test_ab_summary_field_sass(parent_sass, change_sass, equal):
-    """The controls' machine code (K2/K3's frame form, K7) counts as
-    unchanged only when both sides compiled the same instantiations to the
-    same SASS, and at least one."""
-    runs = [{"root": "P", "stacks": [], "control_sass": parent_sass,
-             "k": 1.0},
-            {"root": "C", "stacks": [], "control_sass": change_sass,
-             "k": 1.0}]
+    """The controls' machine code (the segment kernel's forms, K6, K7's
+    word kernel) counts as unchanged only when both sides compiled the same
+    instantiations to the same SASS, and at least one."""
+    runs = [{"root": "P", "card": "a", "stacks": [],
+             "control_sass": parent_sass, "k": 1.0},
+            {"root": "C", "card": "a", "stacks": [],
+             "control_sass": change_sass, "k": 1.0}]
     assert ab_kernel_times.summary(runs, "P", "C")[
         "control_sass_equal"] is equal
 
 
 def _sass(newer, pad, label, op="IADD3"):
-    """A ``cuobjdump -sass`` listing of the controls (K2's frame form of
-    the segment kernel, K7) and of two field forms (K4, K8), named as an
-    older source (``newer`` False: K4 ``mc_recon_kernel``, K7 and K8
-    ``mc_swar_kernel`` with a FIELD argument) or a newer one (K2, K4 and
-    K8 forms of ``mc_seg_kernel`` by FIELD and RECON, K7 without FIELD)
-    names them."""
+    """A ``cuobjdump -sass`` listing of the controls — K2's, K4's and K8's
+    forms of the segment kernel, one of K6's forms of the staged kernel,
+    one of K7's word kernel — beside kernels that are none: K5 as an older
+    source has it (``newer`` False: the staged kernel's one-plane form) or a
+    newer one (its own kernel, and K7's picture form), and the empty
+    kernel."""
     def fn(name, op):
         return (f"\t\tFunction : _ZN3_GN15{name}\n"
                 f"        /*0000*/{pad}{op} R1, R2, R3 ;{pad}/* 0x0001 */\n"
@@ -113,30 +117,38 @@ def _sass(newer, pad, label, op="IADD3"):
                 f".L_x_{label}:\n        /*0020*/{pad}EXIT ;\n"
                 f"\t\t..........\n\n\n")
     seg = "mc_seg_kernelILi16ELi16ELi1ELb1E"
-    swar = "mc_swar_kernelILi8ELi8ELb1E"
-    if newer:     # K2 last: a second listing's header follows its body
-        names = {seg + "Lb1ELb1EEEvv": "LDG", seg + "Lb1ELb0EEEvv": "STG",
-                 swar + "EEvv": "IMAD", seg + "Lb0ELb1EEEvv": op}
-    else:
-        names = {seg + "EEvv": op, swar + "Lb0EEEvv": "IMAD",
-                 "mc_recon_kernelILi16ELi16ELb1EEEvv": "LDG",
-                 swar + "Lb1EEEvv": "STG"}
+    k5 = ("mc_roll_luma_kernelILb1EEEvv" if newer
+          else "mc_roll_kernelILi16ELi16ELi1ELb1EEEvv")
+    # K2 last: a second listing's header follows its body
+    names = {seg + "Lb1ELb1EEEvv": "LDG", seg + "Lb1ELb0EEEvv": "STG",
+             k5: "SHFL", "mc_roll_kernelILi8ELi8ELi2ELb1EEEvv": "IMAD",
+             "mc_swar_kernelILi8ELi8ELb1EEEvv": "LOP3",
+             "empty_kernelEv": "NOP", seg + "Lb0ELb1EEEvv": op}
+    if newer:
+        names = {"mc_swar_yuv_kernelILi8ELi8ELb1EEEvv": "VABSDIFF4", **names}
     header = "\n\tcode for sm_90a\n"
-    return header + "".join(fn(n, o) for n, o in names.items()) + (
-        header if newer else "")
+    return header + "".join(fn(n, o) for n, o in names.items()) + header
 
 
 def test_sass_digests_ignore_layout():
     """Column padding, what follows a function's body and the file-wide
-    label numbering do not count; an instruction does; the field forms are
-    left out, and the keys of older and newer sources agree."""
+    label numbering do not count; a changed opcode does; K5 and the empty
+    kernel are left out, so an older and a newer source give the same
+    keys."""
     parent = ab_kernel_times.sass_digests(_sass(False, " " * 19, 3))
     same = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12))
     other = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12,
                                                op="IADD"))
-    assert sorted(parent) == ["seg 16x16 np=1 bidir=1", "swar 8x8 bidir=1"]
+    assert sorted(parent) == [
+        "roll uv 8x8 bidir=1",
+        "seg 16x16 np=1 bidir=1 field=0 recon=1",
+        "seg 16x16 np=1 bidir=1 field=1 recon=0",
+        "seg 16x16 np=1 bidir=1 field=1 recon=1",
+        "swar 8x8 bidir=1"]
     assert parent == same
     assert parent != other
+    assert {k for k in parent if parent[k] != other[k]} == {
+        "seg 16x16 np=1 bidir=1 field=0 recon=1"}
 
 
 @pytest.mark.parametrize("name", ["tokenizer.cpp", "vlc_tables.inc"])

@@ -3,7 +3,8 @@ PyTorch version (K2 and K3 on every input kind of :func:`_mc_case`: edge
 windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
 K4 and K8 on those and the field kinds: field units at the bottom and
 right edges and at C_1 = -1, every ``sx_r & 3`` at every phase, every MB
-field-predicted; K3, K4, K6, K7 and K8 at the chroma tile of every format,
+field-predicted; K5 and K7's picture form on every frame kind; K3, K4, K6,
+K7 and K8 at the chroma tile of every format,
 K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
 profiler's parity run and the kernel gate.
@@ -308,10 +309,12 @@ def test_decode_fixture_through_kernels(name, kernels):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
-def test_roll_luma_kernel_matches_plain(bidir):
-    """K5 against K2's plain version, which computes the same function."""
+@pytest.mark.parametrize("kind", MC_KINDS)
+def test_roll_luma_kernel_matches_plain(kind, bidir):
+    """K5 against K2's plain version, which computes the same function, on
+    every input kind."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 18, 1088, 1920, 16, 1)
+    r0, r1, res, meta = _mc_case(dev, 18, 1088, 1920, 16, 1, kind=kind)
     before = _build.LAUNCHES["mc_roll_luma"]
     got = mc_fused.fused_mc_recon_roll(r0[0], r1[0], res[0], *meta,
                                        bidir=bidir)
@@ -320,6 +323,21 @@ def test_roll_luma_kernel_matches_plain(bidir):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["mc_roll_luma"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_roll_luma_refuses_misaligned_residual():
+    """K5 loads the residual 16 bytes at a time, as K2: a residual view two
+    bytes into its storage raises before any launch."""
+    dev = _require_cuda()
+    r0, r1, _, meta = _mc_case(dev, 23, 64, 64, 16, 1)
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.int16, device=dev)
+    shifted = flat[1:].view(64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc_fused.fused_mc_recon_roll(r0[0], r1[0], shifted, *meta)
+    assert dict(_build.LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -367,6 +385,58 @@ def test_swar_kernel_matches_plain(H, W, tile, bidir, field):
     assert torch.equal(got, want)
 
 
+def _yuv_case(dev, seed, Hc, Wc, tile, kind="random"):
+    """One picture for K7's picture form: (Y, U, V) reference triples, the
+    luma and chroma vectors of :func:`_mc_case` (``kind`` shapes both) and
+    the mode vector all three components share.  Luma is 16x16 on the MB
+    grid of the (Hc, Wc) chroma planes of ``tile`` MBs."""
+    th, tw = tile
+    y0, y1, _, meta_y = _mc_case(dev, seed, Hc * 16 // th, Wc * 16 // tw, 16,
+                                 1, kind=kind)
+    c0, c1, _, meta_c = _mc_case(dev, seed + 1, Hc, Wc, tile, 2, kind=kind)
+    return ((y0[0], *c0), (y1[0], *c1), tuple(meta_y[:6]), tuple(meta_c[:6]),
+            meta_y[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
+@pytest.mark.parametrize("Hc,Wc,tile", [(544, 960, (8, 8)),
+                                        (1088, 960, (16, 8)),
+                                        (1088, 1920, (16, 16))])
+def test_swar_yuv_kernel_matches_plain(Hc, Wc, tile, kind, bidir):
+    """K7's picture form, one launch for the three components, at the
+    chroma tile of every format on every input kind: each word plane equal
+    to the plain version's."""
+    dev = _require_cuda()
+    args = _yuv_case(dev, 24, Hc, Wc, tile, kind)
+    before = dict(_build.LAUNCHES)
+    got = mc_fused.fused_mc_pred_swar_yuv(*args, h=tile[0], w=tile[1],
+                                          bidir=bidir)
+    want = mc_fused.fused_mc_pred_swar_yuv_ref(*args, h=tile[0], w=tile[1],
+                                               bidir=bidir)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {
+        **before, "mc_swar_yuv": before.get("mc_swar_yuv", 0) + 1}
+    assert len(got) == 3
+    for g, w, ref in zip(got, want, args[0]):
+        assert g.dtype == torch.int32
+        assert g.shape == (ref.shape[0], ref.shape[1] // 4)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_swar_yuv_refuses_chroma_planes_of_another_picture():
+    """The chroma planes must be the luma plane's at the tile: 4:2:0 planes
+    under the 4:2:2 tile raise before any launch."""
+    dev = _require_cuda()
+    args = _yuv_case(dev, 25, 64, 96, (8, 8))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        mc_fused.fused_mc_pred_swar_yuv(*args, h=16, w=8)
+    assert dict(_build.LAUNCHES) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
 @pytest.mark.parametrize("kind", MC_KINDS + FIELD_KINDS)
@@ -394,13 +464,16 @@ def test_swar_field_kernel_matches_plain_on_every_kind(H, W, tile, kind,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,impl,kernels", [
-    ("bench_1080p_420_16", "roll", ("idct8x8", "mc_roll_luma", "mc_roll_uv")),
-    ("bench_1080p_420_16", "swar", ("idct8x8", "mc_swar")),
-    ("interlaced_1080_422_16", "swar", ("idct8x8", "mc_swar_field")),
+    ("bench_1080p_420_16", "roll",
+     {"idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16}),
+    ("bench_1080p_420_16", "swar", {"idct8x8": 1, "mc_swar_yuv": 16}),
+    ("interlaced_1080_422_16", "swar", {"idct8x8": 1, "mc_swar_field": 48}),
 ])
 def test_decode_fixture_under_mc_impl(monkeypatch, name, impl, kernels):
     """Under ``MP2V_MC_IMPL`` roll and swar the fixtures decode to the same
-    JAX hash through that implementation's kernels, and no mxu kernel."""
+    JAX hash through that implementation's kernels, launched as often as the
+    16 pictures ask (K7's picture form once a picture, K8 once a component),
+    and through no mxu kernel nor K7's one-component form."""
     _require_cuda()
     monkeypatch.setenv("MP2V_MC_IMPL", impl)
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
@@ -415,10 +488,10 @@ def test_decode_fixture_under_mc_impl(monkeypatch, name, impl, kernels):
     for f in frames:
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
-    for k in kernels:
-        assert _build.LAUNCHES[k] > before.get(k, 0), k
+    for k, n in kernels.items():
+        assert _build.LAUNCHES[k] == before.get(k, 0) + n, k
     for k in ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
-              "mc_field_uv"):
+              "mc_field_uv", "mc_swar"):
         assert _build.LAUNCHES[k] == before.get(k, 0), k
 
 

@@ -1,8 +1,10 @@
 """PyTorch port, K7/K8 (``MP2V_MC_IMPL=swar``): the word helpers, the
 packed-word plain versions against the JAX package's SWAR Pallas kernels
 (interpret mode) and against the port's unpacked gather, on planes 2-7 MBs
-tall with MVs past every edge, luma and each chroma tile; then
-``DeviceRecon`` and the decoder under swar.  All comparisons are exact."""
+tall with MVs past every edge, luma and each chroma tile; K7's picture form
+(three components, one mode vector) against three calls of the JAX kernel,
+and the checks its launcher makes before a launch; then ``DeviceRecon`` and
+the decoder under swar.  All comparisons are exact."""
 import numpy as np
 import pytest
 
@@ -19,7 +21,9 @@ from tiny_mp2v_dec_tpu import MP2VDecoder as JaxDecoder  # noqa: E402
 from tiny_mp2v_dec_tpu import headers as HD  # noqa: E402
 from tiny_mp2v_dec_tpu.ops import mc_pallas as jp  # noqa: E402
 from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder  # noqa: E402
+from tiny_mp2v_dec_tpu_torch import PictureGeometry  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
+from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon  # noqa: E402
 
 # one component per call: (tile rows, columns), (plane rows, columns)
 TILES = {"luma": ((16, 16), (H, W)),
@@ -140,6 +144,126 @@ def test_swar_wrappers_take_no_kernel_on_cpu_and_refuse_other_devices():
     with pytest.raises(ValueError, match="tiles"):
         mc_fused._launch("mp2v_mc_swar", "mc_swar", (z8,), (z8,), (), meta,
                          8, 16, True)
+
+
+MBH, MBW = 3, 4                       # the picture form's test picture
+
+
+def _yuv_case(fmt, seed):
+    """One picture of MBH x MBW MBs at chroma format ``fmt``: numpy (Y, U,
+    V) reference triples, the luma and the chroma vectors (random MVs past
+    every edge, per component) and the mode vector all three share."""
+    h, w = TILES[fmt][0]
+    cy = _case(seed, 16, 16, MBH * 16, MBW * 16)
+    cc = _case(seed + 1, h, w, MBH * h, MBW * w)
+    meta_y = _meta_both(cy, MBH * 16, MBW * 16, 16, 16)
+    meta_c = _meta_both(cc, MBH * h, MBW * w, h, w)
+    return ((cy["refs"][0], cc["refs"][0], cc["refs"][1]),
+            (cy["refs"][1], cc["refs"][2], cc["refs"][3]),
+            meta_y[:6], meta_c[:6], cy["mode"], (h, w))
+
+
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("fmt", ["4:2:0", "4:2:2", "4:4:4"])
+def test_swar_yuv_matches_three_pallas_calls(fmt, bidir):
+    """K7's picture form on the CPU: each of its three word planes equals
+    the JAX kernel's on that component (interpret mode), U and V on the
+    chroma vectors, all three on the one mode vector."""
+    ref0, ref1, meta_y, meta_c, mode, (h, w) = _yuv_case(fmt, 170)
+    t = torch.from_numpy
+    tt = lambda xs: tuple(map(t, xs))  # noqa: E731
+    before = dict(_build.LAUNCHES)
+    got = mc_fused.fused_mc_pred_swar_yuv(tt(ref0), tt(ref1), tt(meta_y),
+                                          tt(meta_c), t(mode), h=h, w=w,
+                                          bidir=bidir)
+    assert dict(_build.LAUNCHES) == before
+    assert len(got) == 3
+    comps = ((16, 16, meta_y), (h, w, meta_c), (h, w, meta_c))
+    for g, r0, r1, (th, tw, meta) in zip(got, ref0, ref1, comps):
+        Hp, Wp = r0.shape
+        want = jp.fused_mc_pred_swar(
+            jp.pad_ref_words(jnp.asarray(r0), th, tw),
+            jp.pad_ref_words(jnp.asarray(r1), th, tw),
+            *map(jnp.asarray, meta), jnp.asarray(mode), h=th, w=tw, H=Hp,
+            W=Wp, interpret=True, bidir=bidir)
+        _check_words(g, want, r0, r1, [*meta, mode], [], th, tw, Hp, Wp,
+                     bidir)
+
+
+def _misaligned(x):
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+# fault -> (what it does to the arguments of _launch_yuv, the error's text)
+YUV_FAULTS = {
+    "chroma-shape": (lambda a: (a[0][:1] + tuple(
+        x[:, :x.shape[1] // 2].contiguous() for x in a[0][1:]),
+        a[1][:1] + tuple(x[:, :x.shape[1] // 2].contiguous()
+                         for x in a[1][1:]), *a[2:]), "per-MB vectors"),
+    "luma-larger": (lambda a: (
+        (torch.zeros((MBH * 32, MBW * 16), dtype=torch.uint8), *a[0][1:]),
+        (torch.zeros((MBH * 32, MBW * 16), dtype=torch.uint8), *a[1][1:]),
+        *a[2:]), "per-MB vectors"),
+    "another-grid": (lambda a: (
+        (a[0][0],) + (torch.zeros((MBW * 8, MBH * 8), dtype=torch.uint8),) * 2,
+        (a[1][0],) + (torch.zeros((MBW * 8, MBH * 8), dtype=torch.uint8),) * 2,
+        *a[2:]), "are not the"),
+    "v-shape": (lambda a: (a[0][:2] + (a[0][2][:-8],), *a[1:]),
+                "reference planes must be contiguous"),
+    "misaligned-luma": (lambda a: ((_misaligned(a[0][0]), *a[0][1:]),
+                                   *a[1:]), "4-byte"),
+    "misaligned-v": (lambda a: (a[0], (*a[1][:2], _misaligned(a[1][2])),
+                                *a[2:]), "4-byte"),
+    "non-contiguous-u": (lambda a: ((a[0][0], a[0][1].t().contiguous().t(),
+                                     a[0][2]), *a[1:]),
+                         "reference planes must be contiguous"),
+    "non-contiguous-vector": (lambda a: (*a[:3], (torch.stack(
+        [a[3][0]] * 2, 1)[:, 0], *a[3][1:]), a[4]), "per-MB vectors"),
+    "five-vectors": (lambda a: (*a[:2], a[2][:5], *a[3:]), "six per-MB"),
+    "two-planes": (lambda a: (a[0][:2], *a[1:]), "triples"),
+    "int64-mode": (lambda a: (*a[:4], a[4].to(torch.int64)),
+                   "per-MB vectors"),
+}
+
+
+@pytest.mark.parametrize("fault", list(YUV_FAULTS))
+def test_swar_yuv_launcher_refuses(fault):
+    """The picture form's launcher makes ``_launch``'s checks on all three
+    components before it loads the kernel library (so they run here, on CPU
+    tensors), and counts no launch."""
+    ref0, ref1, meta_y, meta_c, mode, (h, w) = _yuv_case("4:2:0", 180)
+    t = torch.from_numpy
+    tt = lambda xs: tuple(map(t, xs))  # noqa: E731
+    args = (tt(ref0), tt(ref1), tt(meta_y), tt(meta_c), t(mode))
+    change, match = YUV_FAULTS[fault]
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        mc_fused._launch_yuv(*change(args), h, w, True)
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_swar_yuv_refuses_tiles_and_other_devices():
+    ref0, ref1, meta_y, meta_c, mode, _ = _yuv_case("4:4:4", 190)
+    t = torch.from_numpy
+    tt = lambda xs: tuple(map(t, xs))  # noqa: E731
+    args = (tt(ref0), tt(ref1), tt(meta_y), tt(meta_c), t(mode))
+    with pytest.raises(ValueError, match="tiles"):
+        mc_fused._launch_yuv(*args, 8, 16, True)
+    with pytest.raises(ValueError, match="no kernel"):
+        mc_fused.fused_mc_pred_swar_yuv(
+            tuple(x.to("meta") for x in args[0]), *args[1:], h=16, w=16)
+
+
+def test_device_recon_swar_takes_the_picture_form_without_field_support():
+    geom = PictureGeometry(width=32, height=32, chroma_format=HD.CHROMA_420)
+    frame = DeviceRecon(geom, "cpu", mc_impl="swar")
+    assert frame._mc_fns is mc_fused.fused_mc_pred_swar_yuv
+    assert DeviceRecon(geom, "cpu", mc_impl="swar", use_cuda_mc=False
+                       )._mc_fns is mc_fused.fused_mc_pred_swar_yuv_ref
+    field = DeviceRecon(geom, "cpu", field_support=True, mc_impl="swar")
+    assert field._mc_fns is mc_fused.fused_mc_pred_swar_field
 
 
 SIZES = [(HD.CHROMA_420, 192, 112), (HD.CHROMA_422, 320, 128),

@@ -14,7 +14,9 @@ windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
 with the field tuples also field units at the edges and at C_1 = -1, every
 ``sx_r & 3`` at every phase, every MB field-predicted).  The plain
 versions are held against the JAX package's Pallas kernels in
-``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then the wrappers'
+``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then K5's lane scheme
+(one warp per luma MB: which lane loads which aligned word of the window,
+what the warp shuffles deliver) modelled lane by lane, and the wrappers'
 alignment checks, which run before any launch."""
 import numpy as np
 import pytest
@@ -91,6 +93,100 @@ def test_field_word_prediction_and_epilogue_equal_the_recon(tile, planes,
         words = mc_fused.fused_mc_pred_swar_field_ref(
             r0[k], r1[k], *meta, h=h, w=w, bidir=bidir)
         assert torch.equal(_epilogue(words, res[k], meta[6], h, w), want[k])
+
+
+def _k5_direction(words, sy, sx, ph):
+    """K5's lane scheme (``roll_pred``, csrc/mc_roll.cu) for one direction
+    of one luma MB: the 32 lanes' two prediction words, (32, 2) int64, from
+    ``words``, the reference's aligned words with the zero pad in place.
+    Lane 2*ty + seg holds segment ``seg`` of tile row ``ty``.  Each load is
+    logged; the log must hold every word of the window — 16 rows, 17 under
+    a vertical half-pel phase, by the 5 word columns from ``sx >> 2`` —
+    exactly once."""
+    lane = torch.arange(32)
+    ty, seg = lane >> 1, lane & 1
+    y, x = sy + ty, (sx >> 2) + 3 * seg
+    s = torch.full((32,), (sx & 3) << 3)
+    vert = bool(ph & 2)
+    loads = []
+
+    def load(rows, cols, lanes):
+        """The words at (rows, cols) on the lanes of the mask, 0 on the
+        others, which make no load."""
+        loads.extend(zip(rows[lanes].tolist(), cols[lanes].tolist()))
+        return torch.where(lanes, words[torch.where(lanes, rows, 0),
+                                        torch.where(lanes, cols, 0)], 0)
+
+    everyone = torch.ones(32, dtype=torch.bool)
+    a, b = load(y, x, everyone), load(y, x + 1, everyone)
+    # word 2 of the row on segment 0; on lane 31 word 2 of row sy + 16
+    c = load(y, x + 2, seg == 0)
+    if vert:
+        c = c + load(y + 1, x - 1, lane == 31)
+    o = c[lane ^ 1]                                   # __shfl_xor_sync(c, 1)
+    s0 = seg == 0
+    w = [torch.where(s0, a, o), torch.where(s0, b, a), torch.where(s0, c, b)]
+
+    def taps(w0, w1, w2):
+        p = [mc_fused._funnel(w0, w1, s), mc_fused._funnel(w1, w2, s)]
+        if ph & 1:
+            q = [mc_fused._funnel(w0, w1, s + 8),
+                 mc_fused._funnel(w1, w2, s + 8)]
+            p = [mc_fused.avg_up(p[k], q[k]) for k in range(2)]
+        return p
+
+    p = taps(*w)
+    if vert:
+        down = torch.where(lane + 2 < 32, lane + 2, lane)  # __shfl_down_sync
+        last = ty == 15
+        e, f = load(y + 1, x, last), load(y + 1, x + 1, last)
+        below = [torch.where(s0, e, c), torch.where(s0, f, e),
+                 torch.where(s0, o, f)]
+        v = [torch.where(last, below[k], w[k][down]) for k in range(3)]
+        p = [mc_fused.avg_up(p[k], q) for k, q in enumerate(taps(*v))]
+    x0 = sx >> 2
+    assert sorted(loads) == [(r, col) for r in range(sy, sy + 16 + vert)
+                             for col in range(x0, x0 + 5)]
+    return torch.stack(p, dim=1)
+
+
+def _k5_model(r0, r1, res, meta, bidir):
+    """K5 on one luma plane through :func:`_k5_direction`: a coded MB's
+    lanes predict in each direction its mode uses, average the two packed,
+    and the words go through the kernels' epilogue; an uncoded MB loads
+    nothing."""
+    H, W = res.shape
+    mbw = W // 16
+    vec = [m.tolist() for m in meta]
+    planes = [mc_fused._swar_words(r) for r in (r0, r1)]
+    out = torch.zeros((H, W // 4), dtype=torch.int64)
+    for i, mode in enumerate(vec[6]):
+        if not mode & 4:
+            continue
+        use = [bool(mode & 1), bidir and bool(mode & 2)]
+        preds = [_k5_direction(planes[d],
+                               *(v[i] for v in vec[3 * d:3 * d + 3]))
+                 for d in range(2) if use[d]]
+        if not preds:
+            continue
+        pred = preds[0] if len(preds) == 1 else mc_fused.avg_up(*preds)
+        r, col = (i // mbw) * 16, (i % mbw) * 4
+        out[r:r + 16, col:col + 4] = pred.reshape(16, 4)
+    return _epilogue(mc_fused.words_to_int32(out), res, meta[6], 16, 16)
+
+
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
+def test_roll_luma_lane_scheme_equals_the_recon(kind, bidir):
+    """K5's lane scheme equals ``fused_mc_recon_ref`` on every input kind:
+    windows at the bottom and right edges (the lanes of row 15 load row
+    ``sy + 16``, the zero pad), every ``sx & 3`` at every phase, modes 0-7;
+    and every aligned word of a window is loaded by exactly one lane."""
+    r0, r1, res, meta = _mc_case("cpu", 60, MBH * 16, MBW * 16, 16, 1,
+                                 kind=kind)
+    want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta, h=16,
+                                       w=16, bidir=bidir)
+    assert torch.equal(_k5_model(r0[0], r1[0], res[0], meta, bidir), want)
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8)])
@@ -183,9 +279,10 @@ def _recon_args(entry, fault):
                                          ("reference", "4-byte"),
                                          ("width", "divisible by 4")])
 @pytest.mark.parametrize("entry", ["mp2v_mc_recon_luma", "mp2v_mc_recon_uv",
-                                   "mp2v_mc_field_luma", "mp2v_mc_field_uv"])
+                                   "mp2v_mc_field_luma", "mp2v_mc_field_uv",
+                                   "mp2v_mc_roll_luma"])
 def test_recon_kernels_refuse_misaligned_inputs(entry, fault, match):
-    """K2, K3 and K4 read the references as words and the residual 16
+    """K2, K3, K4 and K5 read the references as words and the residual 16
     bytes at a time: the launcher's checks raise before it loads the kernel
     library (so they run here, on CPU tensors) and count no launch."""
     refs0, refs1, ress, meta, h, w = _recon_args(entry, fault)

@@ -129,7 +129,10 @@ def test_gop_recon_plain_switches_match_default(impl, field):
 def test_plain_switch_takes_the_plain_functions():
     g = PictureGeometry(width=32, height=32, chroma_format=1)
     plain = trecon.DeviceRecon(g, "cpu", mc_impl="swar", use_cuda_mc=False)
-    assert plain._mc_fns is mc_fused.fused_mc_pred_swar_ref
+    assert plain._mc_fns is mc_fused.fused_mc_pred_swar_yuv_ref
+    plain = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="swar",
+                               use_cuda_mc=False)
+    assert plain._mc_fns is mc_fused.fused_mc_pred_swar_field_ref
     kern = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="mxu")
     assert kern._mc_fns == (mc_fused.fused_mc_recon,
                             mc_fused.fused_mc_recon_uv)

@@ -6,8 +6,10 @@ MBs, and per direction the vectors and reference windows of the MBs whose
 mode uses it.  Here it equals a count made pixel by pixel, the way the
 kernels walk a tile (every tap of every output pixel, frame or field
 unit), on ``chip_smoke.mc_inputs`` at a small size, and a hand count on
-one MB.  ``chip_smoke.window_bytes``, K9's and K10's count through the same
-union, equals its pixel walk too."""
+one MB.  ``chip_smoke.swar_yuv_read_bytes``, the count of K7's picture form
+(three components, one mode vector), equals the three components' pixel
+walks with the mode counted once.  ``chip_smoke.window_bytes``, K9's and
+K10's count through the same union, equals its pixel walk too."""
 import importlib.util
 import os
 
@@ -80,6 +82,28 @@ def test_mc_read_bytes_equals_pixel_walk(tile, n_planes, recon, field):
     got = smoke.mc_read_bytes(torch, meta, H, W, th, tw, n_planes, field,
                               recon)
     assert got == _by_pixel(meta, H, W, th, tw, n_planes, field, recon)
+
+
+@pytest.mark.parametrize("tile", [(8, 8), (16, 8), (16, 16)],
+                         ids=["4:2:0", "4:2:2", "4:4:4"])
+def test_swar_yuv_read_bytes_equals_pixel_walk(tile):
+    """K7's picture form: luma 16x16 with its vectors, U and V at the
+    chroma tile sharing theirs, the mode vector read once for all three."""
+    smoke = _smoke()
+    th, tw = tile
+    mbh, mbw = 3, 4
+    rng = np.random.default_rng(9)
+    _, _, meta_y = smoke.mc_inputs(torch, np, rng, mbh * 16, mbw * 16, 16,
+                                   16, False, device="cpu")
+    _, _, meta_c = smoke.mc_inputs(torch, np, rng, mbh * th, mbw * tw, th,
+                                   tw, False, device="cpu")
+    meta_c = [*meta_c[:6], meta_y[6]]
+    got = smoke.swar_yuv_read_bytes(torch, meta_y, meta_c, mbh * th,
+                                    mbw * tw, th, tw)
+    assert got == (
+        _by_pixel(meta_y, mbh * 16, mbw * 16, 16, 16, 1, False, False)
+        + _by_pixel(meta_c, mbh * th, mbw * tw, th, tw, 2, False, False)
+        - 4 * mbh * mbw)
 
 
 def test_mc_read_bytes_one_mb():

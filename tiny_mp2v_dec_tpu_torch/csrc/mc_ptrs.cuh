@@ -12,6 +12,20 @@
 //
 // Then the tile rows and columns, n_mb, the MB row width mbw, the
 // reference plane's Hr and Wr, bidir and the stream.
+//
+// The picture form of K7 (mp2v_mc_swar_yuv, csrc/mc_swar.cu) takes the same
+// argument list with a pointer array of its own, the three components of
+// one picture:
+//
+//   0-2  ref0[3]   forward reference planes Y, U, V
+//   3-5  ref1[3]   backward reference planes
+//   6-8  out[3]    the (H, W / 4) uint32 word planes
+//   9-14  luma syf, sxf, phf, syb, sxb, phb     per-MB int32 vectors
+//   15-20 chroma syf, sxf, phf, syb, sxb, phb   (U and V share them)
+//   21   mode      (all three components share it)
+//
+// th and tw are the chroma tile, Hr and Wr the luma reference's; luma is
+// 16x16 and a chroma plane (Hr / 16 * th, Wr / 16 * tw).
 #pragma once
 
 #include <stdint.h>
@@ -64,6 +78,40 @@ inline DirMeta dir_meta(const void* const* ptrs, int s) {
 
 inline const int32_t* modes_of(const void* const* ptrs) {
   return (const int32_t*)ptrs[14];
+}
+
+// The picture form's planes (Y, U, V) and one direction's frame vectors of
+// luma (c = 0) or chroma (c = 1).
+struct YuvPlanes {
+  const uint8_t* ref0[3];
+  const uint8_t* ref1[3];
+  uint8_t* out[3];
+};
+
+struct FrameMeta {
+  const int32_t* sy;
+  const int32_t* sx;
+  const int32_t* ph;
+};
+
+inline YuvPlanes yuv_planes_of(const void* const* ptrs) {
+  YuvPlanes p;
+  for (int k = 0; k < 3; ++k) {
+    p.ref0[k] = (const uint8_t*)ptrs[0 + k];
+    p.ref1[k] = (const uint8_t*)ptrs[3 + k];
+    p.out[k] = (uint8_t*)ptrs[6 + k];
+  }
+  return p;
+}
+
+// direction s: 0 forward, 1 backward
+inline FrameMeta yuv_meta(const void* const* ptrs, int c, int s) {
+  const int32_t* const* q = (const int32_t* const*)ptrs + 9 + 6 * c + 3 * s;
+  return FrameMeta{q[0], q[1], q[2]};
+}
+
+inline const int32_t* yuv_modes_of(const void* const* ptrs) {
+  return (const int32_t*)ptrs[21];
 }
 
 }  // namespace mp2v

@@ -15,7 +15,7 @@
 //       or field per MB by mode bit 8, one component per call (luma 16x16,
 //       or one chroma plane at 8x8, 16x8 or 16x16), stored as the (H, W/4)
 //       word plane, pixel 4x at the least significant byte of word x.  Its
-//       frame-only sibling K7 is csrc/mc_swar.cu.
+//       frame-only sibling K7 is csrc/mc_swar.cu, on the same grouping.
 //
 // Per macroblock: the forward and backward (h, w) half-pel predictions at
 // the clamped window starts (sy, sx) that mc_meta computed, each selecting
@@ -87,9 +87,9 @@
 // bytes go back with __byte_perm and one 8-byte store (K8 stores its two
 // prediction words the same way).  A direction the mode does not use is
 // not read; an uncoded MB (K2-K4) reads no reference and no residual and
-// stores zeros.  Staging windows in shared memory (K5/K6, csrc/mc_roll.cu)
-// measured slower than one thread per pixel, and a tile of a few hundred
-// bytes gives TMA or wgmma nothing to do.
+// stores zeros.  Staging windows in shared memory behind a block-wide barrier
+// (K6, csrc/mc_roll.cu) measured slower than one thread per pixel, and a
+// tile of a few hundred bytes gives TMA or wgmma nothing to do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,7 +98,9 @@
 
 namespace {
 
+using mp2v::add_clip4;
 using mp2v::DirMeta;
+using mp2v::mbs_per_group;
 using mp2v::Planes;
 
 // The block size: 8 luma MBs, 16 chroma 8x8 MBs.
@@ -109,26 +111,6 @@ constexpr int kThreads = 256;
 // Left free, ptxas gives the bidir field forms 37-38 registers, six
 // blocks per SM.  The frame forms keep no minimum (0: none is set).
 constexpr int kFieldBlocks = 8;
-
-// MBs side by side in one thread group: tiles 8 wide go in pairs (see
-// mc_seg_kernel).
-__host__ __device__ constexpr int mbs_per_group(int tw) {
-  return tw == 8 ? 2 : 1;
-}
-
-// Residual add and clip of one 4-pixel word: prediction bytes + the two
-// int16 pairs r01, r23 (pixel 0 in the low half of r01), in 32-bit
-// arithmetic, clipped to [0, 255] and packed back into a word.
-__device__ __forceinline__ uint32_t add_clip4(uint32_t pred, int r01,
-                                              int r23) {
-  const int v0 = min(max((int)(pred & 0xFF) + (int)(int16_t)r01, 0), 255);
-  const int v1 = min(max((int)((pred >> 8) & 0xFF) + (r01 >> 16), 0), 255);
-  const int v2 = min(max((int)((pred >> 16) & 0xFF) + (int)(int16_t)r23, 0),
-                     255);
-  const int v3 = min(max((int)(pred >> 24) + (r23 >> 16), 0), 255);
-  return __byte_perm(__byte_perm(v0, v1, 0x0040), __byte_perm(v2, v3, 0x0040),
-                     0x5410);
-}
 
 // Segment `seg` of tile row ty of MB i's prediction in one direction, two
 // words: the field unit of row ty for an MB with mode bit 8 (FIELD forms),

@@ -39,7 +39,8 @@ _I = C.c_int
 # csrc/mc_ptrs.cuh): ref0[2], ref1[2], res[2], out[2], sy/sx/ph fwd,
 # sy/sx/ph bwd, mode, then the field tuples (C0, sx0, ph0, C1, sx1, ph1) fwd
 # and bwd.  The SWAR entry points (K7/K8) take no residual (null) and write
-# their (H, W/4) word plane to out[0].
+# their (H, W/4) word plane to out[0]; K7's picture form (mp2v_mc_swar_yuv)
+# lays the array out its own way (22 pointers, the rest null).
 MC_PTRS = 27
 # the MC entry points' arguments: the pointer array, tile rows, tile
 # columns, n_mb, mb_width, Hr, Wr, bidir, stream
@@ -54,6 +55,7 @@ _SIGNATURES = {
     "mp2v_mc_roll_luma": _MC,
     "mp2v_mc_roll_uv": _MC,
     "mp2v_mc_swar": _MC,
+    "mp2v_mc_swar_yuv": _MC,
     "mp2v_mc_swar_field": _MC,
     # K9: plane, Hp, Wp, sy, sx, ph, out, H, W, stream
     "mp2v_mc_row": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],

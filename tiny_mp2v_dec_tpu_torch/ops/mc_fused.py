@@ -33,12 +33,19 @@ The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
 * ``roll``: :func:`fused_mc_recon_roll` (K5, ``csrc/mc_roll.cu``, replaces
   ``fused_mc_recon``) and :func:`fused_mc_recon_uv_roll` (K6, replaces
   ``fused_mc_recon_uv``) — K2's and K3's function, frame prediction only,
-  through a window staged in shared memory;
-* ``swar``: :func:`fused_mc_pred_swar` (K7, ``csrc/mc_swar.cu``) and its
-  field form :func:`fused_mc_pred_swar_field` (K8, a form of K4's segment
-  kernel in ``csrc/mc_recon.cu``) — the prediction alone, four pixels per
-  32-bit word (:func:`pack_ref_words`), one component per call, no
-  residual and no coded bit.
+  each aligned word of an MB's window loaded once: K5 one warp per MB, the
+  words rotated into place by funnel shifts and warp shuffles (it reads the
+  residual 16 bytes at a time, as K2); K6 one block per MB, the window
+  staged in shared memory;
+* ``swar``: the prediction alone, four pixels per 32-bit word
+  (:func:`pack_ref_words`), no residual and no coded bit.  K7
+  (``csrc/mc_swar.cu``) has two entry points:
+  :func:`fused_mc_pred_swar_yuv`, the three components of one picture in
+  one launch (one thread per 8-pixel row segment), which the decode path
+  takes, and :func:`fused_mc_pred_swar`, one component per call as the JAX
+  kernel (one thread per word).
+  The field form :func:`fused_mc_pred_swar_field` (K8, a form of K4's
+  segment kernel in ``csrc/mc_recon.cu``) takes one component per call.
 """
 from __future__ import annotations
 
@@ -271,6 +278,17 @@ def fused_mc_pred_swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,
                      None, h, w, bidir)
 
 
+def fused_mc_pred_swar_yuv_ref(ref0, ref1, meta_y, meta_c, mode, *,
+                               h: int = 8, w: int = 8, bidir: bool = True):
+    """Plain PyTorch version of K7's picture form on any device: the three
+    word planes of :func:`fused_mc_pred_swar_yuv`, one
+    :func:`fused_mc_pred_swar_ref` per component."""
+    tiles = ((16, 16, meta_y), (h, w, meta_c), (h, w, meta_c))
+    return tuple(
+        fused_mc_pred_swar_ref(r0, r1, *meta, mode, h=th, w=tw, bidir=bidir)
+        for r0, r1, (th, tw, meta) in zip(ref0, ref1, tiles))
+
+
 def fused_mc_pred_swar_field_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb,
                                  mode, fld_f, fld_b, *, h: int, w: int,
                                  bidir: bool = True):
@@ -296,23 +314,26 @@ _TILES = {
     # one component per call: luma takes 16x16, which is a chroma tile too
     "mp2v_mc_swar": _CHROMA,
     "mp2v_mc_swar_field": _CHROMA,
+    # one picture per call: luma 16x16, then U and V at the chroma tile
+    "mp2v_mc_swar_yuv": _CHROMA,
 }
 # entry points that read the reference planes as 32-bit words
 _WORD_READS = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
                "mp2v_mc_field_uv", "mp2v_mc_roll_luma", "mp2v_mc_roll_uv",
-               "mp2v_mc_swar", "mp2v_mc_swar_field"}
+               "mp2v_mc_swar", "mp2v_mc_swar_field", "mp2v_mc_swar_yuv"}
 # entry points that load the residual 16 bytes and store the output 8 bytes
 # at a time (one 8-pixel row segment per thread); the outputs are allocated
 # by _launch, so only the residual is checked
 _VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
-              "mp2v_mc_field_uv"}
+              "mp2v_mc_field_uv", "mp2v_mc_roll_luma"}
 
 
-def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
-    """Check the arguments of kernel ``entry`` and launch it on the
-    current stream; returns the output planes: one (H, W) uint8 plane per
-    residual plane, or — for the SWAR kernels, given no residual — the
-    (Hr, Wr // 4) int32 words of the reference planes' whole extent."""
+def _check(entry, refs0, refs1, ress, meta, h, w):
+    """Check the planes and per-MB vectors kernel ``entry`` takes for one
+    plane (or U and V) of (h x w) tiles; returns (H, W, Hr, Wr): the output
+    planes' shape — the residual planes', or without a residual (the SWAR
+    kernels) the reference planes' whole extent — and the reference
+    planes'."""
     if (h, w) not in _TILES[entry]:
         raise ValueError(f"{entry}: the kernel takes "
                          f"{sorted(_TILES[entry])} tiles, not {h}x{w}")
@@ -347,6 +368,29 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
                 or tuple(x.shape) != (n_mb,) or not x.is_contiguous()):
             raise ValueError(f"{entry}: per-MB vectors must be contiguous "
                              f"({n_mb},) int32 on {dev}")
+    return H, W, Hr, Wr
+
+
+def _call(entry, counter, ptrs, h, w, n_mb, mbw, Hr, Wr, bidir, dev):
+    """Launch kernel ``entry`` on the current stream of ``dev`` with the
+    pointer array ``ptrs`` (padded with nulls to ``MC_PTRS``) and count
+    it."""
+    ptrs = [*ptrs, *[0] * (_build.MC_PTRS - len(ptrs))]
+    lib = _build.kernel_library()
+    rc = getattr(lib, entry)((ctypes.c_void_p * _build.MC_PTRS)(*ptrs), h,
+                             w, n_mb, mbw, Hr, Wr, int(bidir),
+                             _build.stream_handle(dev))
+    _build.check(entry, rc)
+    _build.LAUNCHES[counter] += 1
+
+
+def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
+    """Check the arguments of kernel ``entry`` and launch it on the
+    current stream; returns the output planes: one (H, W) uint8 plane per
+    residual plane, or — for the SWAR kernels, given no residual — the
+    (Hr, Wr // 4) int32 words of the reference planes' whole extent."""
+    H, W, Hr, Wr = _check(entry, refs0, refs1, ress, meta, h, w)
+    dev = refs0[0].device
     if ress:
         outs = tuple(torch.empty((H, W), dtype=torch.uint8, device=dev)
                      for _ in ress)
@@ -356,13 +400,36 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
         (xs[0].data_ptr(), xs[-1].data_ptr()) if xs else (0, 0))
     ptrs = [*pair(refs0), *pair(refs1), *pair(ress), *pair(outs),
             *(x.data_ptr() for x in meta)]
-    ptrs += [0] * (_build.MC_PTRS - len(ptrs))
-    lib = _build.kernel_library()
-    rc = getattr(lib, entry)((ctypes.c_void_p * _build.MC_PTRS)(*ptrs), h,
-                             w, n_mb, W // w, Hr, Wr, int(bidir),
-                             _build.stream_handle(dev))
-    _build.check(entry, rc)
-    _build.LAUNCHES[counter] += 1
+    _call(entry, counter, ptrs, h, w, (H // h) * (W // w), W // w, Hr, Wr,
+          bidir, dev)
+    return outs
+
+
+def _launch_yuv(refs0, refs1, meta_y, meta_c, mode, h, w, bidir):
+    """Check the arguments of K7's picture form — :func:`_check` on luma
+    (16x16) and on U and V (h x w), then that the chroma planes are the
+    luma plane's at that tile — and launch it on the current stream;
+    returns the three (H, W // 4) int32 word planes."""
+    entry = "mp2v_mc_swar_yuv"
+    if not len(refs0) == len(refs1) == 3 or not len(meta_y) == len(
+            meta_c) == 6:
+        raise ValueError(f"{entry}: takes (Y, U, V) reference triples and "
+                         f"six per-MB vectors each for luma and chroma")
+    Hr, Wr = _check(entry, refs0[:1], refs1[:1], (), (*meta_y, mode), 16,
+                    16)[2:]
+    shape_c = _check(entry, refs0[1:], refs1[1:], (), (*meta_c, mode), h,
+                     w)[2:]
+    if shape_c != (Hr // 16 * h, Wr // 16 * w):
+        raise ValueError(f"{entry}: chroma planes {shape_c[0]}x{shape_c[1]} "
+                         f"are not the {Hr}x{Wr} luma plane's at {h}x{w} "
+                         f"tiles")
+    dev = refs0[0].device
+    outs = tuple(torch.empty((x.shape[0], x.shape[1] // 4), dtype=torch.int32,
+                             device=dev) for x in refs0)
+    ptrs = [x.data_ptr() for x in (*refs0, *refs1, *outs, *meta_y, *meta_c,
+                                   mode)]
+    _call(entry, "mc_swar_yuv", ptrs, h, w, (Hr // 16) * (Wr // 16), Wr // 16,
+          Hr, Wr, bidir, dev)
     return outs
 
 
@@ -426,7 +493,8 @@ def fused_mc_recon_roll(ref0, ref1, res_plane, syf, sxf, phf, syb, sxb, phb,
                         w: int = 16, bidir: bool = True):
     """K2's function, frame prediction, through kernel K5: (H, W) uint8.
     Its plain version is :func:`fused_mc_recon_ref`, which computes the
-    same function.  Field tuples raise, as the JAX kernel asserts."""
+    same function.  Field tuples raise, as the JAX kernel asserts.  On the
+    card the residual must be 16-byte aligned, as K2's."""
     _frame_only("fused_mc_recon_roll", fld_f, fld_b)
     if _device_type("fused_mc_recon_roll", res_plane) == "cpu":
         return fused_mc_recon_ref(ref0, ref1, res_plane, syf, sxf, phf, syb,
@@ -461,6 +529,22 @@ def fused_mc_pred_swar(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, *,
                                       phb, mode, h=h, w=w, bidir=bidir)
     return _launch("mp2v_mc_swar", "mc_swar", (ref0,), (ref1,), (),
                    (syf, sxf, phf, syb, sxb, phb, mode), h, w, bidir)[0]
+
+
+def fused_mc_pred_swar_yuv(ref0, ref1, meta_y, meta_c, mode, *, h: int = 8,
+                           w: int = 8, bidir: bool = True):
+    """Packed frame prediction of one picture's three components in one
+    launch of kernel K7.  ``ref0``/``ref1``: (Y, U, V) triples of reference
+    planes, luma (Hr, Wr) in 16x16 tiles, U and V (Hr/16*h, Wr/16*w) in the
+    (h x w) chroma tile; ``meta_y``/``meta_c``: the luma and the chroma
+    (syf, sxf, phf, syb, sxb, phb), U and V sharing theirs; ``mode`` is
+    shared by all three.  Returns the three (rows, columns // 4) int32 word
+    planes.  CPU tensors: the plain version."""
+    if _device_type("fused_mc_pred_swar_yuv", ref0[0]) == "cpu":
+        return fused_mc_pred_swar_yuv_ref(ref0, ref1, meta_y, meta_c, mode,
+                                          h=h, w=w, bidir=bidir)
+    return _launch_yuv(tuple(ref0), tuple(ref1), tuple(meta_y),
+                       tuple(meta_c), mode, h, w, bidir)
 
 
 def fused_mc_pred_swar_field(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,

@@ -20,7 +20,8 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
 
 The MC kernels are those of the JAX package's ``mc_impl`` (see
 :func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
-(frame prediction), ``swar`` K7/K8 (packed prediction per component).
+(frame prediction), ``swar`` K7 (packed prediction, one launch per
+picture) or K8 (per component, in a chunk with field MBs).
 ``use_cuda_idct`` / ``use_cuda_mc`` (the JAX package's ``use_pallas_idct``
 / ``use_pallas_mc``) set to ``False`` take the kernels' plain versions on
 any device, which is what the kernel gate (``tools/perf_gate.py``) holds
@@ -40,9 +41,10 @@ from ..headers import CHROMA_420
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from .idct import idct_blocks, idct_blocks_ref
-from .mc_fused import (fused_mc_pred_swar, fused_mc_pred_swar_field,
-                       fused_mc_pred_swar_field_ref, fused_mc_pred_swar_ref,
-                       fused_mc_recon, fused_mc_recon_ref,
+from .mc_fused import (fused_mc_pred_swar_field,
+                       fused_mc_pred_swar_field_ref, fused_mc_pred_swar_yuv,
+                       fused_mc_pred_swar_yuv_ref, fused_mc_recon,
+                       fused_mc_recon_ref,
                        fused_mc_recon_roll, fused_mc_recon_uv,
                        fused_mc_recon_uv_ref, fused_mc_recon_uv_roll,
                        mc_field_meta, mc_meta, unpack_words)
@@ -50,13 +52,14 @@ from .mc_fused import (fused_mc_pred_swar, fused_mc_pred_swar_field,
 MC_IMPLS = ("mxu", "roll", "swar")
 _PLAIN = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
 # (impl, field support) -> (kernel wrappers, plain versions): (luma, U+V)
-# pairs, or under swar the one per-component prediction function
+# pairs, or under swar the one prediction function: of a whole picture, or
+# under field support of one component
 _MC_FNS = {
     ("mxu", False): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
     ("mxu", True): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
     ("roll", False): ((fused_mc_recon_roll, fused_mc_recon_uv_roll), _PLAIN),
     ("roll", True): (None, _PLAIN),
-    ("swar", False): (fused_mc_pred_swar, fused_mc_pred_swar_ref),
+    ("swar", False): (fused_mc_pred_swar_yuv, fused_mc_pred_swar_yuv_ref),
     ("swar", True): (fused_mc_pred_swar_field, fused_mc_pred_swar_field_ref),
 }
 
@@ -198,7 +201,7 @@ class DeviceRecon:
             use_cuda_mc = False
         self.use_cuda_mc = use_cuda_mc
         # (luma, U+V) reconstruction functions; swar's one prediction
-        # function per component
+        # function
         self._mc_fns = kernels if self.use_cuda_mc else plain
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mb_y, mb_x = np.divmod(np.arange(geom.n_mb), geom.mb_width)
@@ -243,8 +246,9 @@ class DeviceRecon:
         plane layout, then one launch for luma and one for U and V together
         (MC, bidir average, residual add, saturation and uncoded masking):
         K2 and K3, or K4 under field support; K5 and K6 under ``roll``.
-        Under ``swar``, one prediction launch per component (K7, or K8
-        under field support) and a plain PyTorch epilogue."""
+        Under ``swar``, one prediction launch for the picture's three
+        components (K7), or under field support one per component (K8), and
+        a plain PyTorch epilogue per component."""
         geom = self.geom
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
         mbh, mbw = geom.mb_height, geom.mb_width
@@ -274,11 +278,22 @@ class DeviceRecon:
         ch, cw = 16 >> ys, 16 >> xs
         mvc = _scale_mv(mv, geom.chroma_format)
         if swar:
-            def component(c, pos, mvs, h, w):
+            tiles = ((16, 16), (ch, cw), (ch, cw))
+            meta_y = meta(self._pos[0], mv, Hr, Wr, 16, 16)
+            meta_c = meta(self._pos[1], mvc, Hr >> ys, Wr >> xs, ch, cw)
+            if fs:
+                words = [self._mc_fns(refs[c][0], refs[c][1], *m, h=h, w=w,
+                                      bidir=bidir)
+                         for c, (m, (h, w)) in enumerate(zip(
+                             (meta_y, meta_c, meta_c), tiles))]
+            else:
+                words = self._mc_fns(
+                    tuple(refs[c][0] for c in range(3)),
+                    tuple(refs[c][1] for c in range(3)), meta_y[:6],
+                    meta_c[:6], mode, h=ch, w=cw, bidir=bidir)
+
+            def epilogue(c, h, w):
                 H, W = mbh * h, mbw * w
-                predw = self._mc_fns(refs[c][0], refs[c][1],
-                                     *meta(pos, mvs, H, W, h, w), h=h, w=w,
-                                     bidir=bidir)
                 # the uncoded-MB mask rides the residual: -256 saturates to
                 # 0 after the clip (int16 arithmetic, as the JAX epilogue)
                 coded_px = coded.reshape(mbh, 1, mbw, 1).expand(
@@ -286,12 +301,10 @@ class DeviceRecon:
                 res2 = torch.where(coded_px,
                                    _plane_from_tiles(res[c], mbh, mbw, h, w),
                                    -256)
-                pred = unpack_words(predw).to(torch.int16)
+                pred = unpack_words(words[c]).to(torch.int16)
                 return torch.clamp(pred + res2, 0, 255).to(torch.uint8)
 
-            return (component(0, self._pos[0], mv, 16, 16),
-                    component(1, self._pos[1], mvc, ch, cw),
-                    component(2, self._pos[1], mvc, ch, cw))
+            return tuple(epilogue(c, h, w) for c, (h, w) in enumerate(tiles))
         luma_fn, uv_fn = self._mc_fns
         luma = luma_fn(
             refs[0][0], refs[0][1], _plane_from_tiles(res[0], mbh, mbw, 16, 16),

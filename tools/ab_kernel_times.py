@@ -1,6 +1,5 @@
-"""A/B of the IDCT and the segment-kernel MC forms (K1–K4, K8, with K7
-as a control) between two checkouts of the port, on one card, by
-``chip_smoke.py``'s own measurement code.
+"""A/B of the port's kernels (K1–K8) between two checkouts of the port, on
+one card, by ``chip_smoke.py``'s own measurement code.
 
     python3 tools/ab_kernel_times.py PARENT_ROOT [CHANGE_ROOT]
         [--pairs N] [--out DIR]
@@ -13,26 +12,34 @@ which side runs first (P C, C P, P C, ...).  Each process
   build (``_build.build(force=True)``, then loading the library);
 * compiles its ``csrc/mc_recon.cu`` with ``-Xptxas -v`` and keeps the
   stack size that ``ptxas`` reports for each kernel instantiation;
-* compiles ``csrc/mc_recon.cu`` and ``csrc/mc_swar.cu`` to cubins and
-  keeps a digest of the SASS (``cuobjdump -sass``) of each instantiation
-  of the controls (:func:`sass_digests`): the frame forms K2/K3 of the
-  segment kernel ``mc_seg_kernel`` and K7's ``mc_swar_kernel``;
+* compiles ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu`` and
+  ``csrc/mc_swar.cu`` to cubins and keeps a digest of the SASS
+  (``cuobjdump -sass``) of each instantiation of the controls
+  (:func:`sass_digests`): every form of the segment kernel
+  ``mc_seg_kernel`` (K2, K3, K4, K8), K6's forms of ``mc_roll_kernel`` and
+  K7's one-component ``mc_swar_kernel``;
 * times K1 (``chip_smoke.check_idct``: 131,072 blocks) and, by
   ``chip_smoke.check_mc`` (``chip_smoke.mc_inputs``, device time per call
   by ``chip_smoke.cuda_ms``, each form checked against its plain version
   first), bidir and forward-only: K2 (1088x1920 luma), K3 at every chroma
   tile (2 x 544x960 at 8x8, 2 x 1088x960 at 16x8, 2 x 1088x1920 at
-  16x16), K4 luma and U+V at 16x8, K7 luma, K8 luma and one 1088x960
-  plane at 16x8, each with the field bit on half the MBs; K4 luma and K8
-  luma again with it on the interlaced fixture's share (9,320 of 130,560
-  MBs); and K2 and K3 on a plane of one MB (``chip_smoke.one_mb_times``:
-  the fixed cost of a launch).
+  16x16), K4 luma and U+V at 16x8, K5 luma, K6 at 8x8, K7 luma and one
+  544x960 plane at 8x8, K8 luma and one 1088x960 plane at 16x8, each with
+  the field bit on half the MBs; K4 luma and K8 luma again with it on the
+  interlaced fixture's share (9,320 of 130,560 MBs); K2 and K3 on a plane
+  of one MB (``chip_smoke.one_mb_times``: the fixed cost of a launch); and
+  K7 on one 1080p picture at 4:2:0 and 4:2:2 (``chip_smoke.check_swar_yuv``:
+  the picture form's one launch, or in a checkout without it the three
+  one-component launches it replaces, timed as one callable).
 
 Every run prints one JSON line; the summary gives, for each reading, the
 median of each side, the parent's interquartile range, whether the
 medians lie within it of each other, and the pairs in which the change
-read lower; and ``control_sass_equal``: whether both sides compiled the
-controls (K2, K3, K7) to the same machine code.  ``--out`` also keeps each
+read lower; ``cards``: the card's name and power limit as ``nvidia-smi``
+gave them to each process; and ``control_sass_equal``: whether both sides
+compiled the
+controls (K2, K3, K4, K8, K6, K7's one-component form) to the same
+machine code.  ``--out`` also keeps each
 process's full output there.  Needs one CUDA card and ``nvcc``; imports
 nothing of JAX.
 """
@@ -61,7 +68,10 @@ MC = (("K2 luma", 1088, 1920, 16, 16, False, False, "mxu", 0.5),
       ("K3 uv 16x16", 1088, 1920, 16, 16, True, False, "mxu", 0.5),
       ("K4 luma", 1088, 1920, 16, 16, False, True, "mxu", 0.5),
       ("K4 uv 16x8", 1088, 960, 16, 8, True, True, "mxu", 0.5),
+      ("K5 luma", 1088, 1920, 16, 16, False, False, "roll", 0.5),
+      ("K6 uv 8x8", 544, 960, 8, 8, True, False, "roll", 0.5),
       ("K7 luma", 1088, 1920, 16, 16, False, False, "swar", 0.5),
+      ("K7 8x8", 544, 960, 8, 8, False, False, "swar", 0.5),
       ("K8 luma", 1088, 1920, 16, 16, False, True, "swar", 0.5),
       ("K8 16x8", 1088, 960, 16, 8, False, True, "swar", 0.5),
       ("K4 luma fixture share", 1088, 1920, 16, 16, False, True, "mxu",
@@ -70,6 +80,8 @@ MC = (("K2 luma", 1088, 1920, 16, 16, False, False, "mxu", 0.5),
        FIXTURE_FIELD_SHARE))
 # chip_smoke.one_mb_times' forms -> their readings
 ONE_MB = {"mc_recon_luma": "K2 one MB", "mc_recon_uv": "K3 one MB"}
+# chip_smoke.CHROMA's formats K7's picture form is timed at
+YUV = ("4:2:0", "4:2:2")
 
 
 def _smoke():
@@ -100,12 +112,12 @@ def ptxas_stacks(nvcc: str, root: str) -> list:
 
 
 def control_sass(nvcc: str, root: str) -> dict:
-    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu`` and
-    ``csrc/mc_swar.cu``, each compiled to a cubin as the build compiles
-    it."""
+    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu``,
+    ``csrc/mc_roll.cu`` and ``csrc/mc_swar.cu``, each compiled to a cubin as
+    the build compiles it."""
     sass = ""
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("mc_recon", "mc_swar"):
+        for name in ("mc_recon", "mc_roll", "mc_swar"):
             cubin = os.path.join(tmp, name + ".cubin")
             subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,28 +131,30 @@ def control_sass(nvcc: str, root: str) -> dict:
     return sass_digests(sass)
 
 
-# the controls' mangled names: the segment kernel's frame form K2/K3 (tile
-# rows, columns, planes, bidir; a newer source adds FIELD 0 and RECON 1)
-# and K7 (tile rows, columns, bidir; an older source adds FIELD 0)
+# the controls' mangled names: every form of the segment kernel (tile rows,
+# columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8 1 0), K6's
+# forms of the staged kernel (tile rows, columns, 2 planes, bidir) and K7's
+# one-component word kernel (tile rows, columns, bidir)
 _CONTROLS = (
-    (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E(Lb0ELb1E)?E",
-     "seg {}x{} np={} bidir={}"),
-    (r"mc_swar_kernelILi(\d+)ELi(\d+)ELb(\d)E(Lb0E)?E",
-     "swar {}x{} bidir={}"))
+    (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)EE",
+     "seg {}x{} np={} bidir={} field={} recon={}"),
+    (r"mc_roll_kernelILi(\d+)ELi(\d+)ELi2ELb(\d)EE",
+     "roll uv {}x{} bidir={}"),
+    (r"mc_swar_kernelILi(\d+)ELi(\d+)ELb(\d)EE", "swar {}x{} bidir={}"))
 
 
 def sass_digests(sass: str) -> dict:
     """sha256 of each instantiation of the controls in ``cuobjdump -sass``
-    output (:data:`_CONTROLS`: K2/K3's frame form of ``mc_seg_kernel``,
-    K7's ``mc_swar_kernel``), keyed by its kernel and the template
-    arguments the two sides share: the lines of its body up to
+    output (:data:`_CONTROLS`: the forms of ``mc_seg_kernel``, K6's forms
+    of ``mc_roll_kernel``, K7's ``mc_swar_kernel``), keyed by its kernel and
+    its template
+    arguments: the lines of its body up to
     cuobjdump's closing line of dots — each instruction and its encoding —
     without the function's name line, what follows the body (after the
     last function of a listing, the next listing's header), runs of
     blanks (cuobjdump pads columns to the file's longest instruction) or
-    the file-wide numbering of branch labels.  Other instantiations (K4's
-    and K8's forms of ``mc_seg_kernel``, or an older source's K4
-    ``mc_recon_kernel`` and K8) are left out."""
+    the file-wide numbering of branch labels.  Other kernels (K5's, K7's
+    picture form, the empty kernel) are left out."""
     out = {}
     for fn in sass.split("Function : ")[1:]:
         name, _, body = fn.partition("\n")
@@ -154,7 +168,7 @@ def sass_digests(sass: str) -> dict:
                     x[0], f".L{len(labels)}"), body)
                 body = "\n".join(" ".join(line.split())
                                  for line in body.splitlines())
-                out[key.format(*m.groups()[:-1])] = hashlib.sha256(
+                out[key.format(*m.groups())] = hashlib.sha256(
                     body.encode()).hexdigest()
     return out
 
@@ -175,6 +189,10 @@ def run_one(root: str) -> dict:
     _build.build(force=True)
     _build.kernel_library()
     rec = {"root": root, "build_s": time.perf_counter() - t0,
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True).stdout.strip(),
            "stacks": ptxas_stacks(_build.nvcc_path(), root),
            "control_sass": control_sass(_build.nvcc_path(), root)}
     rng = np.random.default_rng(2024)
@@ -186,6 +204,11 @@ def run_one(root: str) -> dict:
     for form, r in smoke.one_mb_times(torch, np, rng).items():
         name = ONE_MB[form]
         rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
+    for label, tile, H, W in smoke.CHROMA:
+        if label in YUV:
+            r = smoke.check_swar_yuv(torch, np, rng, label, tile, H, W)
+            name = f"K7 picture {label}"
+            rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
     return rec
 
 
@@ -196,7 +219,7 @@ def summary(runs: list, parent: str, change: str) -> dict:
     side = {r: [x for x in runs if x["root"] == r] for r in (parent, change)}
     out = {}
     for key in runs[0]:
-        if key in ("root", "stacks", "control_sass"):
+        if key in ("root", "card", "stacks", "control_sass"):
             continue
         p = [x[key] for x in side[parent]]
         c = [x[key] for x in side[change]]
@@ -209,6 +232,7 @@ def summary(runs: list, parent: str, change: str) -> dict:
                     "pairs": min(len(p), len(c))}
     out["control_sass_equal"] = bool(runs[0]["control_sass"]) and all(
         x["control_sass"] == runs[0]["control_sass"] for x in runs)
+    out["cards"] = sorted({x["card"] for x in runs})
     return out
 
 
