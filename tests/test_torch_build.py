@@ -67,9 +67,11 @@ def test_ab_summary_counts_pairs():
     runs = []
     sass = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab"}
     for p, c in ((10.0, 1.0), (12.0, 2.0), (8.0, 9.0), (14.0, 1.5)):
-        runs += [{"root": "P", "card": "H100, 700.00 W", "stacks": [64],
+        runs += [{"root": "P", "card": "H100, 700.00 W",
+                  "ptxas": {"k": {"registers": 64}},
                   "control_sass": sass, "k": p},
-                 {"root": "C", "card": "H100, 700.00 W", "stacks": [0],
+                 {"root": "C", "card": "H100, 700.00 W",
+                  "ptxas": {"k": {"registers": 32}},
                   "control_sass": sass, "k": c}]
     s = ab_kernel_times.summary(runs, "P", "C")
     assert list(s) == ["k", "control_sass_equal", "cards"]
@@ -82,22 +84,22 @@ def test_ab_summary_counts_pairs():
 
 
 _SASS = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab",
-         "roll uv 8x8 bidir=1": "cd"}
+         "roll luma bidir=1": "cd"}
 
 
 @pytest.mark.parametrize("parent_sass,change_sass,equal", [
     (_SASS, dict(_SASS), True),
-    (_SASS, {**_SASS, "roll uv 8x8 bidir=1": "ce"}, False),
+    (_SASS, {**_SASS, "roll luma bidir=1": "ce"}, False),
     (_SASS, {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab"}, False),
     ({}, {}, False),
 ], ids=["same", "one-differs", "one-missing", "none-found"])
 def test_ab_summary_field_sass(parent_sass, change_sass, equal):
-    """The controls' machine code (the segment kernel's forms, K6, K7's
+    """The controls' machine code (the segment kernel's forms, K5, K7's
     word kernel) counts as unchanged only when both sides compiled the same
     instantiations to the same SASS, and at least one."""
-    runs = [{"root": "P", "card": "a", "stacks": [],
+    runs = [{"root": "P", "card": "a", "ptxas": {},
              "control_sass": parent_sass, "k": 1.0},
-            {"root": "C", "card": "a", "stacks": [],
+            {"root": "C", "card": "a", "ptxas": {},
              "control_sass": change_sass, "k": 1.0}]
     assert ab_kernel_times.summary(runs, "P", "C")[
         "control_sass_equal"] is equal
@@ -105,11 +107,10 @@ def test_ab_summary_field_sass(parent_sass, change_sass, equal):
 
 def _sass(newer, pad, label, op="IADD3"):
     """A ``cuobjdump -sass`` listing of the controls — K2's, K4's and K8's
-    forms of the segment kernel, one of K6's forms of the staged kernel,
-    one of K7's word kernel — beside kernels that are none: K5 as an older
-    source has it (``newer`` False: the staged kernel's one-plane form) or a
-    newer one (its own kernel, and K7's picture form), and the empty
-    kernel."""
+    forms of the segment kernel, K5's warp kernel, one of K7's word kernel
+    — beside kernels that are none: K6 as an older source has it (``newer``
+    False: the staged kernel's two-plane form) or a newer one (its warp
+    kernel, and K7's picture form), and the empty kernel."""
     def fn(name, op):
         return (f"\t\tFunction : _ZN3_GN15{name}\n"
                 f"        /*0000*/{pad}{op} R1, R2, R3 ;{pad}/* 0x0001 */\n"
@@ -117,11 +118,11 @@ def _sass(newer, pad, label, op="IADD3"):
                 f".L_x_{label}:\n        /*0020*/{pad}EXIT ;\n"
                 f"\t\t..........\n\n\n")
     seg = "mc_seg_kernelILi16ELi16ELi1ELb1E"
-    k5 = ("mc_roll_luma_kernelILb1EEEvv" if newer
-          else "mc_roll_kernelILi16ELi16ELi1ELb1EEEvv")
+    k6 = ("mc_roll_uv_kernelILi8ELi8ELb1EEEvv" if newer
+          else "mc_roll_kernelILi8ELi8ELi2ELb1EEEvv")
     # K2 last: a second listing's header follows its body
     names = {seg + "Lb1ELb1EEEvv": "LDG", seg + "Lb1ELb0EEEvv": "STG",
-             k5: "SHFL", "mc_roll_kernelILi8ELi8ELi2ELb1EEEvv": "IMAD",
+             "mc_roll_luma_kernelILb1EEEvv": "SHFL", k6: "IMAD",
              "mc_swar_kernelILi8ELi8ELb1EEEvv": "LOP3",
              "empty_kernelEv": "NOP", seg + "Lb0ELb1EEEvv": op}
     if newer:
@@ -132,7 +133,7 @@ def _sass(newer, pad, label, op="IADD3"):
 
 def test_sass_digests_ignore_layout():
     """Column padding, what follows a function's body and the file-wide
-    label numbering do not count; a changed opcode does; K5 and the empty
+    label numbering do not count; a changed opcode does; K6 and the empty
     kernel are left out, so an older and a newer source give the same
     keys."""
     parent = ab_kernel_times.sass_digests(_sass(False, " " * 19, 3))
@@ -140,7 +141,7 @@ def test_sass_digests_ignore_layout():
     other = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12,
                                                op="IADD"))
     assert sorted(parent) == [
-        "roll uv 8x8 bidir=1",
+        "roll luma bidir=1",
         "seg 16x16 np=1 bidir=1 field=0 recon=1",
         "seg 16x16 np=1 bidir=1 field=1 recon=0",
         "seg 16x16 np=1 bidir=1 field=1 recon=1",
@@ -149,6 +150,54 @@ def test_sass_digests_ignore_layout():
     assert parent != other
     assert {k for k in parent if parent[k] != other[k]} == {
         "seg 16x16 np=1 bidir=1 field=0 recon=1"}
+
+
+def test_sass_opcodes_count_one_kernel():
+    """K1's instruction count by opcode: modifiers and predicates dropped,
+    the other functions of the listing and cuobjdump's encoding lines left
+    out."""
+    listing = _sass(True, " " * 7, 4).replace(
+        "Function : _ZN3_GN15empty_kernelEv\n",
+        "Function : _ZN3_GN14idct8x8_kernelEPK4int4PS0_i\n"
+        "        /*0000*/       VIMNMX.S32 R4, R4, 0x7fff, PT ;  /* 0x1 */\n"
+        "                                                        /* 0x2 */\n"
+        "        /*0010*/  @!P0 VIADDMNMX R5, R4, R3, R2, !PT ;  /* 0x3 */\n"
+        "        /*0020*/       VIMNMX.S32 R6, R5, -0x8000, !PT ; /* 0x4 */\n")
+    # the three instructions above, then the listing's own NOP, BRA, EXIT
+    assert ab_kernel_times.sass_opcodes(listing, "idct8x8_kernel") == {
+        "total": 6, "VIMNMX": 2, "VIADDMNMX": 1, "NOP": 1, "BRA": 1,
+        "EXIT": 1}
+
+
+# what ptxas -v says of one kernel, in the form of a newer ptxas (``stack
+# size``) or an older one (``stack frame``)
+_PTXAS = {
+    "new": ("ptxas info    : Compiling entry function '{k}' for 'sm_90a'\n"
+            "ptxas info    : Function properties for {k}\n"
+            "    0 bytes spill stores, 8 bytes spill loads\n"
+            "ptxas info    : Used {r} registers, used 0 barriers, 16 bytes "
+            "cumulative stack size, 380 bytes cmem[0]\n"),
+    "old": ("ptxas info    : Compiling entry function '{k}' for 'sm_90a'\n"
+            "ptxas info    : Function properties for {k}\n"
+            "    16 bytes stack frame, 0 bytes spill stores, 8 bytes spill "
+            "loads\n"
+            "ptxas info    : Used {r} registers, 380 bytes cmem[0]\n"),
+}
+
+
+@pytest.mark.parametrize("form", ["new", "old"])
+def test_ptxas_report_reads_each_kernel(tmp_path, monkeypatch, form):
+    """``ptxas_report`` compiles each listed source once and keeps, per
+    kernel, the registers, stack bytes and spilled bytes ptxas printed."""
+    nvcc = tmp_path / "nvcc"
+    text = "".join(_PTXAS[form].format(k=f"_Z{k}", r=30 + k)
+                   for k in range(2))
+    nvcc.write_text("#!/bin/sh\ncat >&2 <<'X'\n" + text + "X\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(ab_kernel_times, "PTXAS_SOURCES", ("idct",))
+    assert ab_kernel_times.ptxas_report(str(nvcc), REPO) == {
+        f"_Z{k}": {"registers": 30 + k, "stack": 16, "spill": 8}
+        for k in range(2)}
 
 
 @pytest.mark.parametrize("name", ["tokenizer.cpp", "vlc_tables.inc"])

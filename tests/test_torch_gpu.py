@@ -3,8 +3,9 @@ PyTorch version (K2 and K3 on every input kind of :func:`_mc_case`: edge
 windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
 K4 and K8 on those and the field kinds: field units at the bottom and
 right edges and at C_1 = -1, every ``sx_r & 3`` at every phase, every MB
-field-predicted; K5 and K7's picture form on every frame kind; K3, K4, K6,
-K7 and K8 at the chroma tile of every format,
+field-predicted; K5, K6 and K7's picture form on every frame kind; K3, K4,
+K6, K7 and K8 at the chroma tile of every format; K1 from one block to the
+interlaced fixture's 196,608, over all of int16;
 K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
 profiler's parity run and the kernel gate.
@@ -41,17 +42,39 @@ def _require_cuda():
 
 
 @pytest.mark.cuda
-def test_idct_kernel_matches_plain():
+@pytest.mark.parametrize("lo,hi", [(-2048, 2048), (-32768, 32768)])
+@pytest.mark.parametrize("n", [1, 31, 33, 70000, 196608])
+def test_idct_kernel_matches_plain(n, lo, hi):
+    """K1 against its plain version: a block alone, warps and CTAs cut short
+    (31, 33: 4 blocks a warp, 32 a CTA), 70,000 blocks and the interlaced
+    fixture's 196,608; coefficients over the decoder's range and over all
+    of int16, with all-zero and saturating rows among them."""
     dev = _require_cuda()
-    rng = np.random.default_rng(3)
-    c = rng.integers(-2048, 2048, (70000, 64)).astype(np.int16)
-    c[0], c[1], c[2] = 0, 2047, -2048
+    rng = np.random.default_rng(3 + n)
+    c = rng.integers(lo, hi, (n, 64)).astype(np.int16)
+    c[0] = hi - 1
+    if n > 2:
+        c[1], c[2] = 0, lo
     x = torch.from_numpy(c).to(dev)
     before = _build.LAUNCHES["idct8x8"]
     got = idct_blocks(x)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["idct8x8"] == before + 1
     assert torch.equal(got, idct_blocks_ref(x))
+
+
+@pytest.mark.cuda
+def test_idct_kernel_refuses_misaligned_input():
+    """K1 reads 16-byte rows: coefficients two bytes into their storage
+    raise before any launch."""
+    dev = _require_cuda()
+    flat = torch.zeros(8 * 64 + 1, dtype=torch.int16, device=dev)
+    shifted = flat[1:].view(8, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        idct_blocks(shifted)
+    assert dict(_build.LAUNCHES) == before
 
 
 # input kinds of the frame forms (:func:`_mc_case`)
@@ -342,13 +365,17 @@ def test_roll_luma_refuses_misaligned_residual():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
 @pytest.mark.parametrize("H,W,tile", [(544, 960, (8, 8)),
                                       (1088, 960, (16, 8)),
-                                      (1088, 1920, (16, 16))])
-def test_roll_uv_kernel_matches_plain(H, W, tile, bidir):
-    """K6 at the chroma tile of every format."""
+                                      (1088, 1920, (16, 16)),
+                                      (24, 40, (8, 8))])
+def test_roll_uv_kernel_matches_plain(H, W, tile, bidir, kind):
+    """K6 at the chroma tile of every format on every input kind, and on
+    an 8x8 plane of an odd number of MBs (the last warp's second MB
+    missing)."""
     dev = _require_cuda()
-    r0, r1, res, meta = _mc_case(dev, 19, H, W, tile, 2)
+    r0, r1, res, meta = _mc_case(dev, 19, H, W, tile, 2, kind=kind)
     args = (tuple(r0), tuple(r1), tuple(res), *meta)
     before = _build.LAUNCHES["mc_roll_uv"]
     got = mc_fused.fused_mc_recon_uv_roll(*args, h=tile[0], w=tile[1],
@@ -358,6 +385,24 @@ def test_roll_uv_kernel_matches_plain(H, W, tile, bidir):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["mc_roll_uv"] == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 8), (16, 8), (16, 16)])
+def test_roll_uv_refuses_misaligned_residual(tile):
+    """K6 loads the residual 16 bytes at a time, as K3: a V residual view
+    two bytes into its storage raises before any launch."""
+    dev = _require_cuda()
+    r0, r1, res, meta = _mc_case(dev, 26, 64, 64, tile, 2)
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.int16, device=dev)
+    shifted = flat[1:].view(64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc_fused.fused_mc_recon_uv_roll(tuple(r0), tuple(r1),
+                                        (res[0], shifted), *meta, h=tile[0],
+                                        w=tile[1])
+    assert dict(_build.LAUNCHES) == before
 
 
 @pytest.mark.cuda

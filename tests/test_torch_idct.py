@@ -46,3 +46,27 @@ def test_idct_rejects_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         idct_blocks(torch.zeros((4, 64), dtype=torch.int16, device="meta"))
 
+
+
+def _misaligned(n=4):
+    """(n, 64) int16 coefficients two bytes into their storage."""
+    x = torch.zeros(n * 64 + 1, dtype=torch.int16)[1:].view(n, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("coeffs,match", [
+    (_misaligned(), "16-byte"),
+    (torch.zeros((4, 64), dtype=torch.int32), "int16"),
+    (torch.zeros((64, 4), dtype=torch.int16).t(), "contiguous"),
+    (torch.zeros((4, 8, 8), dtype=torch.int16), r"\(B, 64\)"),
+])
+def test_idct_launch_refuses_what_the_kernel_does_not_take(coeffs, match):
+    """K1 reads 16-byte rows of contiguous (B, 64) int16 blocks: the
+    launcher's checks raise before it loads the kernel library (so they run
+    here, on CPU tensors) and count no launch."""
+    from tiny_mp2v_dec_tpu_torch.ops import idct
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        idct._launch(coeffs)
+    assert dict(_build.LAUNCHES) == before

@@ -14,9 +14,10 @@ windows, every ``sx & 3``, every mode, extreme residuals, one-MB planes;
 with the field tuples also field units at the edges and at C_1 = -1, every
 ``sx_r & 3`` at every phase, every MB field-predicted).  The plain
 versions are held against the JAX package's Pallas kernels in
-``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then K5's lane scheme
-(one warp per luma MB: which lane loads which aligned word of the window,
-what the warp shuffles deliver) modelled lane by lane, and the wrappers'
+``test_torch_mc.py`` and ``test_torch_mc_swar.py``.  Then K5's and K6's
+lane schemes (which lane loads which aligned word of a window, what the
+warp shuffles deliver: K5 one warp per luma MB, K6 at every chroma tile,
+two MBs per warp at 8x8) modelled lane by lane, and the wrappers'
 alignment checks, which run before any launch."""
 import numpy as np
 import pytest
@@ -95,6 +96,17 @@ def test_field_word_prediction_and_epilogue_equal_the_recon(tile, planes,
         assert torch.equal(_epilogue(words, res[k], meta[6], h, w), want[k])
 
 
+def _tap_row2(w0, w1, w2, s, ph):
+    """``tap_row2`` (csrc/swar_word.cuh) on int64 words: the two prediction
+    words of one tap row from its three aligned words at bit offset ``s``,
+    averaged with the taps one pixel to the right where the phase ``ph``
+    (per lane, or one for all) has bit 0."""
+    p = [mc_fused._funnel(w0, w1, s), mc_fused._funnel(w1, w2, s)]
+    q = [mc_fused._funnel(w0, w1, s + 8), mc_fused._funnel(w1, w2, s + 8)]
+    hx = torch.as_tensor((ph & 1) != 0)
+    return [torch.where(hx, mc_fused.avg_up(a, b), a) for a, b in zip(p, q)]
+
+
 def _k5_direction(words, sy, sx, ph):
     """K5's lane scheme (``roll_pred``, csrc/mc_roll.cu) for one direction
     of one luma MB: the 32 lanes' two prediction words, (32, 2) int64, from
@@ -128,12 +140,7 @@ def _k5_direction(words, sy, sx, ph):
     w = [torch.where(s0, a, o), torch.where(s0, b, a), torch.where(s0, c, b)]
 
     def taps(w0, w1, w2):
-        p = [mc_fused._funnel(w0, w1, s), mc_fused._funnel(w1, w2, s)]
-        if ph & 1:
-            q = [mc_fused._funnel(w0, w1, s + 8),
-                 mc_fused._funnel(w1, w2, s + 8)]
-            p = [mc_fused.avg_up(p[k], q[k]) for k in range(2)]
-        return p
+        return _tap_row2(w0, w1, w2, s, ph)
 
     p = taps(*w)
     if vert:
@@ -187,6 +194,134 @@ def test_roll_luma_lane_scheme_equals_the_recon(kind, bidir):
     want = mc_fused.fused_mc_recon_ref(r0[0], r1[0], res[0], *meta, h=16,
                                        w=16, bidir=bidir)
     assert torch.equal(_k5_model(r0[0], r1[0], res[0], meta, bidir), want)
+
+
+def _k6_direction8(words, i, pl, ty, meta, use, th):
+    """K6's 8-wide lane scheme (``roll_pred8``, csrc/mc_roll.cu) for one
+    direction of one warp: the 32 lanes' two prediction words, (32, 2)
+    int64.  ``words``: (2, rows, columns) U and V word planes with the zero
+    pad in place; per lane ``i`` its MB, ``pl`` its plane, ``ty`` its tile
+    row, ``use`` whether its MB uses the direction; ``meta`` the direction's
+    (sy, sx, ph) vectors.  The loads are gated by ``use``, the shuffles run
+    on every lane.  Each load is logged by (plane, MB); the log of each
+    plane tile that uses the direction must hold every word of its window —
+    ``th`` rows, ``th + 1`` under a vertical half-pel phase, by the 3 word
+    columns from ``sx >> 2`` — exactly once, and no other tile loads."""
+    lane = torch.arange(32)
+    safe = torch.where(use, i, 0)
+    sy, sx, ph = (m[safe] for m in meta)
+    y, x = sy + ty, sx >> 2
+    s = (sx & 3) << 3
+    vert = (ph & 2) != 0
+    loads = {}
+
+    def load(rows, cols, lanes):
+        for k in lanes.nonzero().flatten().tolist():
+            loads.setdefault((int(pl[k]), int(i[k])), []).append(
+                (int(rows[k]), int(cols[k])))
+        return torch.where(lanes, words[pl, torch.where(lanes, rows, 0),
+                                        torch.where(lanes, cols, 0)], 0)
+
+    w = [load(y, x + k, use) for k in range(3)]
+    # __shfl_down_sync(w_k, 1, th): lane + 1 inside the lane's group of th
+    down = torch.where(lane % th + 1 < th, lane + 1, lane)
+    last = use & vert & (ty == th - 1)
+    v = [torch.where(last, load(y + 1, x + k, last), w[k][down])
+         for k in range(3)]
+    p = _tap_row2(*w, s, ph)
+    q = _tap_row2(*v, s, ph)
+    p = [torch.where(vert, mc_fused.avg_up(a, b), a) for a, b in zip(p, q)]
+    want = set()
+    for k in use.nonzero().flatten().tolist():
+        key = (int(pl[k]), int(i[k]))
+        x0, y0, rows = int(x[k]), int(sy[k]), th + int(vert[k])
+        if key not in want:
+            want.add(key)
+            assert sorted(loads.pop(key)) == [
+                (r, c) for r in range(y0, y0 + rows)
+                for c in range(x0, x0 + 3)]
+    assert not loads
+    return torch.stack(p, dim=1)
+
+
+def _k6_model(r0, r1, res, meta, bidir, th, tw):
+    """K6 on a U and V plane pair, lane by lane: at 16x16 a warp per plane
+    tile, K5's warp (:func:`_k5_direction`); at the 8-wide tiles the lanes
+    grouped as the kernel groups them — 16x8 a warp per plane of two MBs,
+    8x8 U and V of two MBs in one warp — through :func:`_k6_direction8`,
+    each direction run when any lane of the warp uses it.  A coded MB's
+    lanes average the two packed predictions, and the words go through the
+    kernels' epilogue; an uncoded MB, and the missing second MB of the last
+    pair, loads nothing."""
+    H, W = res[0].shape
+    mbw = W // tw
+    n = (H // th) * mbw
+    planes = [torch.stack([mc_fused._swar_words(r) for r in refs])
+              for refs in (r0, r1)]
+    mode = meta[6].to(torch.int64)
+    dirs = [[m.to(torch.int64) for m in meta[3 * d:3 * d + 3]]
+            for d in range(2)]
+    out = torch.zeros((2, H, W // 4), dtype=torch.int64)
+    if tw == 16:
+        for i in range(n):
+            m = int(mode[i])
+            use = [bool(m & 4 and m & 1), bidir and bool(m & 4 and m & 2)]
+            for k in range(2):
+                preds = [_k5_direction(planes[d][k],
+                                       *(int(v[i]) for v in dirs[d]))
+                         for d in range(2) if use[d]]
+                if not preds:
+                    continue
+                pred = preds[0] if len(preds) == 1 else mc_fused.avg_up(
+                    *preds)
+                r, col = (i // mbw) * th, (i % mbw) * 4
+                out[k, r:r + th, col:col + 4] = pred.reshape(th, 4)
+    else:
+        tpg = 4 * th                      # U and V of a pair of MBs
+        for warp in range(-(-n // 2) * tpg // 32):
+            t = warp * 32 + torch.arange(32)
+            r = t % tpg
+            i = (t // tpg) * 2 + (r // th) % 2
+            pl, ty = r // (2 * th), r % th
+            live = i < n
+            m = torch.where(live, mode[torch.where(live, i, 0)], 0)
+            coded = (m & 4) != 0
+            f = coded & ((m & 1) != 0)
+            b = coded & ((m & 2) != 0) & bidir
+            zero = torch.zeros((32, 2), dtype=torch.int64)
+            pf = (_k6_direction8(planes[0], i, pl, ty, dirs[0], f, th)
+                  if bool(f.any()) else zero)
+            pb = (_k6_direction8(planes[1], i, pl, ty, dirs[1], b, th)
+                  if bool(b.any()) else zero)
+            pred = torch.where((f & b)[:, None], mc_fused.avg_up(pf, pb),
+                               torch.where(f[:, None], pf,
+                                           torch.where(b[:, None], pb, 0)))
+            for k in (coded & live).nonzero().flatten().tolist():
+                row = (int(i[k]) // mbw) * th + int(ty[k])
+                col = (int(i[k]) % mbw) * 2
+                out[pl[k], row, col:col + 2] = pred[k]
+    return tuple(_epilogue(mc_fused.words_to_int32(out[k]), res[k], meta[6],
+                           th, tw) for k in range(2))
+
+
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("kind", MC_KINDS)
+@pytest.mark.parametrize("tile", [(8, 8), (16, 8), (16, 16)])
+def test_roll_uv_lane_scheme_equals_the_recon(tile, kind, bidir):
+    """K6's lane scheme equals ``fused_mc_recon_uv_ref`` at every chroma
+    tile on every input kind: two MBs of different modes, windows and
+    phases in one warp (8-wide tiles), windows at the bottom and right
+    edges (the last row's lane loads row ``sy + h``, the zero pad), every
+    ``sx & 3`` at every phase, modes 0-7, one-MB planes (the pair's second
+    MB missing); and every aligned word of a plane tile's window is loaded
+    by exactly one lane."""
+    h, w = tile
+    r0, r1, res, meta = _mc_case("cpu", 64, MBH * h, MBW * w, tile, 2,
+                                 kind=kind)
+    want = mc_fused.fused_mc_recon_uv_ref(tuple(r0), tuple(r1), tuple(res),
+                                          *meta, h=h, w=w, bidir=bidir)
+    got = _k6_model(r0, r1, res, meta, bidir, h, w)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8)])
@@ -280,11 +415,12 @@ def _recon_args(entry, fault):
                                          ("width", "divisible by 4")])
 @pytest.mark.parametrize("entry", ["mp2v_mc_recon_luma", "mp2v_mc_recon_uv",
                                    "mp2v_mc_field_luma", "mp2v_mc_field_uv",
-                                   "mp2v_mc_roll_luma"])
+                                   "mp2v_mc_roll_luma", "mp2v_mc_roll_uv"])
 def test_recon_kernels_refuse_misaligned_inputs(entry, fault, match):
-    """K2, K3, K4 and K5 read the references as words and the residual 16
-    bytes at a time: the launcher's checks raise before it loads the kernel
-    library (so they run here, on CPU tensors) and count no launch."""
+    """K2, K3, K4, K5 and K6 read the references as words and the residual
+    16 bytes at a time: the launcher's checks raise before it loads the
+    kernel library (so they run here, on CPU tensors) and count no
+    launch."""
     refs0, refs1, ress, meta, h, w = _recon_args(entry, fault)
     assert all(x.is_contiguous() for x in (*refs0, *ress))
     before = dict(_build.LAUNCHES)

@@ -5,25 +5,41 @@
 // golden/idct.py butterfly8 op for op: mulhi(x, k) = (x * k) >> 16,
 // int16-saturating adds/subs, int16-wrapping left shifts, final >> 6.
 //
-// What bounds it on an H100: memory.  Each 8x8 block reads 128 bytes and
-// writes 128 bytes for about 2 x 8 x 60 integer operations, far below the
-// card's operations-per-byte balance, so the kernel is a streaming pass and
-// its design only has to keep global accesses coalesced.
+// What bounds it on an H100: integer instructions, not bytes.  Each 8x8
+// block reads and writes 128 bytes each (33.5 MB for a 1080p chunk's
+// 131,072 blocks, 10 us at 3.35 TB/s), but takes 16 butterflies of 40
+// saturating adds and subtracts each: ptxas makes each one a fused
+// add-and-clamp (VIADDMNMX) and a second clamp (VIMNMX), nearly half a
+// thread's instructions, and the kernel reads within 10% of the same time
+// with its data in L2 as from HBM.  So the layout is chosen for
+// whole-sector accesses and no CTA barrier, and the instruction count is
+// what the helpers below keep down; the butterfly's arithmetic stays the
+// golden model's.
 //
-// Design: one thread per column (pass 1) and then per row (pass 2) of a
-// block; 8 threads per block, 32 blocks per CTA (256 threads).  Pass 1
-// loads element k*8+lane of each block — the 8 lanes of a block read 16
-// contiguous bytes per k — and runs the butterfly in registers.  The
-// transpose goes through shared memory (rows padded to 9 words against
-// bank conflicts).  Pass 2 runs the butterfly along the other axis and
-// stores row i*8+lane, again contiguous across the 8 lanes.  The Pallas
-// kernel's (8, 8, TB) batch-along-lanes layout was a TPU vreg workaround and
-// is not carried over.
+// Design: one thread per stored row.  8 threads per block, 4 blocks per
+// warp, 32 per CTA (256 threads).  Thread l loads row l of its block's
+// stored matrix as one 16-byte load, so a warp's load instruction reads 512
+// contiguous bytes, and stores row l of the result as one 16-byte store.
+// The butterfly runs along columns, so three 8x8 transposes of int16 go
+// through shared memory, each within a block's 8 lanes, which lie in one
+// warp: __syncwarp() orders them, no CTA barrier.  (1) the loaded rows are
+// stored as they came and thread l reads column l (pass 1); (2) thread l
+// stores its pass-1 column as a row and reads column l of those (pass 2,
+// which gives column l of the result); (3) thread l stores that column as a
+// row and reads row l of the result back out of the columns.  Every value
+// crossing is in int16 range (the butterfly saturates), so the rows are
+// packed int16, 16 bytes a row, and a block's slot holds 9 rows: the pad
+// row puts the four blocks of a warp 4 banks apart, so neither the 16-byte
+// row stores nor the 2-byte column reads conflict.  The Pallas kernel's
+// (8, 8, TB) batch-along-lanes layout was a TPU vreg workaround and is not
+// carried over.
 //
 // Integer semantics relied on: int is 32 bits; >> of a negative int is an
 // arithmetic shift (implementation-defined in C++17, arithmetic on nvcc),
-// which matches numpy's floor shift.  Left shifts are written as
-// multiplications so that no negative value is shifted left.
+// which matches numpy's floor shift; converting an int to int16_t keeps its
+// low 16 bits (implementation-defined before C++20, modular on nvcc).  Left
+// shifts are written as multiplications so that no negative value is
+// shifted left.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,14 +49,15 @@ constexpr int K_TMP0 = 27145, K_TMP1 = 30068, K_TMP3 = 20090, K_TMP4 = 25079;
 constexpr int K0 = 27145, K1 = -5037, K2 = -19954, K3 = -22089;
 constexpr int K5 = 14567, K6 = 17391, K7 = 25570;
 constexpr int IDCT_SCALE_SHIFT = 6;
-constexpr int BLOCKS_PER_CTA = 32;
+constexpr int kThreads = 256;
+constexpr int kBlocksPerCta = kThreads / 8;
 
 __device__ __forceinline__ int sat16(int x) {
   return min(max(x, -32768), 32767);
 }
-__device__ __forceinline__ int wrap16(int x) {
-  return ((x + 32768) & 65535) - 32768;
-}
+// the int16 wraparound as a conversion (nvcc keeps the low 16 bits): one
+// sign extension, fewer instructions than ((x + 32768) & 65535) - 32768
+__device__ __forceinline__ int wrap16(int x) { return (int)(int16_t)x; }
 __device__ __forceinline__ int mulhi(int x, int k) { return (x * k) >> 16; }
 __device__ __forceinline__ int adds(int a, int b) { return sat16(a + b); }
 __device__ __forceinline__ int subs(int a, int b) { return sat16(a - b); }
@@ -92,44 +109,61 @@ __device__ __forceinline__ void butterfly8(const int s[8], int o[8]) {
   o[7] = subs(v0, v7);
 }
 
+// Two int16-range values into one word, lo in the low half.
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+__device__ __forceinline__ int4 pack8(const int v[8]) {
+  return make_int4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                   pack2(v[6], v[7]));
+}
+
 // in: (n, 64) int16 in transposed-raster storage; out: (n, 8, 8) int16
-// raster residual.  blockDim = (8, BLOCKS_PER_CTA).
-__global__ void idct8x8_kernel(const int16_t* __restrict__ in,
-                               int16_t* __restrict__ out, int n) {
-  __shared__ int t[BLOCKS_PER_CTA][8][9];
-  const int lane = threadIdx.x;
-  const int b = threadIdx.y;
-  const long long blk = (long long)blockIdx.x * BLOCKS_PER_CTA + b;
+// raster residual; both 16-byte aligned, read and written as 16-byte rows.
+// blockDim = kThreads; thread 8b + l is row l of block b of the CTA.
+__global__ void __launch_bounds__(kThreads)
+    idct8x8_kernel(const int4* __restrict__ in, int4* __restrict__ out,
+                   int n) {
+  // two slots per block (each transpose writes the one the previous did
+  // not read from); rows 0-7 of a slot, row 8 the pad
+  __shared__ int4 slot[2][kBlocksPerCta][9];
+  const int l = threadIdx.x & 7;
+  const int b = threadIdx.x >> 3;
+  const long long blk = (long long)blockIdx.x * kBlocksPerCta + b;
   const bool live = blk < n;
+  const int16_t* t0 = reinterpret_cast<const int16_t*>(slot[0][b]);
+  const int16_t* t1 = reinterpret_cast<const int16_t*>(slot[1][b]);
   int s[8], o[8];
-  // pass 1: column `lane` of the stored matrix
-  const int16_t* src = in + blk * 64;
+  // (1) row l in; pass 1 on column l of the stored matrix
+  slot[0][b][l] = live ? in[blk * 8 + l] : make_int4(0, 0, 0, 0);
+  __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] = live ? src[k * 8 + lane] : 0;
+  for (int k = 0; k < 8; ++k) s[k] = t0[k * 8 + l];
+  butterfly8(s, o);
+  // (2) pass 2 on row l of the pass-1 result: column l of the output
+  slot[1][b][l] = pack8(o);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = t1[k * 8 + l];
   butterfly8(s, o);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) t[b][j][lane] = o[j];
-  __syncthreads();
-  // pass 2: row `lane` of the pass-1 result; output row i, column lane
+  for (int i = 0; i < 8; ++i) o[i] >>= IDCT_SCALE_SHIFT;
+  // (3) output column l in, output row l out
+  slot[0][b][l] = pack8(o);
+  __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] = t[b][lane][k];
-  butterfly8(s, o);
-  if (live) {
-    int16_t* dst = out + blk * 64;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      dst[i * 8 + lane] = (int16_t)(o[i] >> IDCT_SCALE_SHIFT);
-  }
+  for (int c = 0; c < 8; ++c) s[c] = t0[c * 8 + l];
+  if (live) out[blk * 8 + l] = pack8(s);
 }
 
 }  // namespace
 
 extern "C" int mp2v_idct8x8(const void* in, void* out, int n, void* stream) {
   if (n > 0) {
-    const dim3 block(8, BLOCKS_PER_CTA);
-    const int grid = (n + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA;
-    idct8x8_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)in, (int16_t*)out, n);
+    const int grid = (n + kBlocksPerCta - 1) / kBlocksPerCta;
+    idct8x8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int4*)in, (int4*)out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -88,8 +88,8 @@
 // prediction words the same way).  A direction the mode does not use is
 // not read; an uncoded MB (K2-K4) reads no reference and no residual and
 // stores zeros.  Staging windows in shared memory behind a block-wide barrier
-// (K6, csrc/mc_roll.cu) measured slower than one thread per pixel, and a
-// tile of a few hundred bytes gives TMA or wgmma nothing to do.
+// (K5's and K6's first form) measured slower than one thread per pixel, and
+// a tile of a few hundred bytes gives TMA or wgmma nothing to do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

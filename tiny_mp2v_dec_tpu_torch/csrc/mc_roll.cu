@@ -16,15 +16,20 @@
 //
 // The TPU kernel loads an aligned window of the VMEM-resident reference
 // once and rotates the misalignment away in registers (pltpu.roll), then
-// takes all four taps from the rotated copy.  Both Hopper forms keep that
-// idea: each aligned 32-bit word of a direction's (h+1)-row window, from the
-// word column sx >> 2, is loaded from global memory once per MB.  Words at
-// or past Wr / 4 and rows at or past Hr read 0, the zero pad of pad_for_mc.
-// A direction the MB does not use, and every direction of an uncoded MB, is
-// not read.
+// takes all four taps from the rotated copy.  Both Hopper kernels keep that
+// idea with the card's means: each aligned 32-bit word of a direction's
+// (h+1)-row window, from the word column sx >> 2, is loaded from global
+// memory by exactly one lane; a lane's neighbours' words arrive by warp
+// shuffles and the misalignment goes in funnel shifts within the lane.
+// Words at or past Wr / 4 and rows at or past Hr read 0, the zero pad of
+// pad_for_mc.  A direction the MB does not use, and every direction of an
+// uncoded MB, is not read.  One lane holds one 8-pixel row segment; then
+// the taps of tap_row2 (funnel shifts and __vavgu4, csrc/swar_word.cuh),
+// the packed bidir average, the residual as one 16-byte load, add_clip4 and
+// one 8-byte store, as K2; an uncoded MB's lanes read nothing and store
+// zeros.  No shared memory and no barrier.
 //
-// K5 (mc_roll_luma_kernel): the register rotation is a funnel shift within
-// a lane and a warp shuffle across lanes.  One warp per luma MB, 8 MBs per
+// K5 (mc_roll_luma_kernel, roll_pred): one warp per luma MB, 8 MBs per
 // 256-thread block; lane = 2 * ty + seg holds the 8-pixel segment seg of
 // tile row ty, and the MB's mode, window start and phase are uniform across
 // the warp.  Of the five window words of row sy + ty, the lane of segment 0
@@ -37,22 +42,35 @@
 // where K2's three words per tap row make up to 6 per lane and 192 per warp
 // (its repeats hit L1).  The shuffles run with the warp converged: whether
 // a direction is used and its phase are uniform, and the loads that differ
-// by lane sit outside them.  Then the taps of tap_row2 (funnel shifts and
-// __vavgu4, csrc/swar_word.cuh), the packed bidir average, the residual as
-// one 16-byte load, add_clip4 and one 8-byte store, as K2; an uncoded MB
-// reads nothing and stores zeros.
+// by lane sit outside them.
 //
-// K6 (mc_roll_kernel): one thread block per MB, U and V as the two z-slices,
-// stages each direction's window into shared memory with 32-bit loads,
-// neighbouring threads on neighbouring words; after __syncthreads() each
-// thread reads its four taps from shared memory at byte offset sx & 3.
+// K6 (mc_roll_uv_kernel): U and V of an MB share its mode, window starts
+// and phases; the lanes are grouped as mc_seg_kernel groups K3's threads,
+// so that a warp's residual rows fill whole 32-byte sectors:
+//   16x16  a warp per plane tile, U then V: roll_pred, K5's warp, on the
+//          plane's pointer; the MB is two warps of one block.
+//   16x8   a warp per plane of two horizontally adjacent MBs, lanes 0-15
+//          the first, 16-31 the second, one lane per tile row; U's warp,
+//          then V's.
+//   8x8    eight lanes per plane tile, U and V of two adjacent MBs in one
+//          warp: lanes 0-7 U of the first, 8-15 U of the second, 16-23 and
+//          24-31 their V.
+// At the 8-wide tiles (roll_pred8) a 9-pixel row from byte offset sx & 3
+// spans three words, and each lane loads its own row's three; under a
+// vertical phase the row below comes from the lane of the next tile row by
+// __shfl_down_sync at the width of the plane tile's lanes, so no lane reads
+// another tile's, and only the lane of the last tile row loads row sy + th.
+// A direction costs a lane 3 loads (6 on the last row) and a plane tile
+// 3 x (th + 1).  The two MBs of an 8-wide warp differ in mode, directions
+// and phase: the exchange runs on every lane of the warp, its loads gated by
+// the lane's MB, and each lane selects by its own phase afterwards.  A
+// direction is skipped when no lane of the warp uses it (__any_sync).
 //
 // What bounds them on an H100: bytes, under a launch floor, as K2/K3: an MB
 // reads at most 2 x (h+1) x ceil((w+4)/4) words of reference and h x w
 // residual pixels, and writes h x w bytes; the work per pixel is a few
-// integer operations.  K6 pays a block-wide barrier and byte-wide taps, a
-// byte-wide store and an int16 load per pixel on top.  No wgmma, TMA or
-// asynchronous bulk copy: the tiles are a few hundred bytes.
+// integer operations.  No wgmma, TMA or asynchronous bulk copy: the tiles
+// are a few hundred bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,108 +81,6 @@ namespace {
 
 using mp2v::DirMeta;
 using mp2v::Planes;
-
-// words of one staged window row: w + 1 pixels from a byte offset <= 3
-template <int TW>
-__host__ __device__ constexpr int win_words() {
-  return (TW + 3) / 4 + 1;
-}
-
-// One pixel of a unidirectional prediction from a staged window: the tap
-// a sits at row ty, byte x of the window.
-template <int TW>
-__device__ __forceinline__ int halfpel_staged(const uint32_t* win, int ty,
-                                              int x, int ph) {
-  constexpr int RB = 4 * win_words<TW>();  // bytes per staged row
-  const uint8_t* px = reinterpret_cast<const uint8_t*>(win) + ty * RB + x;
-  const int a = px[0];
-  switch (ph & 3) {
-    case 0:
-      return a;
-    case 1:
-      return (a + px[1] + 1) >> 1;
-    case 2:
-      return (a + px[RB] + 1) >> 1;
-    default: {
-      const int ab = (a + px[1] + 1) >> 1;
-      const int cd = (px[RB] + px[RB + 1] + 1) >> 1;
-      return (ab + cd + 1) >> 1;
-    }
-  }
-}
-
-// Stage one direction's window of MB i: (TH + 1) rows of win_words words
-// from word column sx >> 2, by the NT threads of this plane's slice.
-template <int TH, int TW, int NT>
-__device__ __forceinline__ void stage(uint32_t* win,
-                                      const uint8_t* __restrict__ ref,
-                                      int sy, int sx, int t, int Hr, int Wr) {
-  constexpr int WW = win_words<TW>();
-  const uint32_t* rw = reinterpret_cast<const uint32_t*>(ref);
-  const int nw = Wr >> 2, x0 = sx >> 2;
-  for (int k = t; k < (TH + 1) * WW; k += NT) {
-    const int y = sy + k / WW, x = x0 + k % WW;
-    win[k] = (y < Hr && x < nw) ? rw[(long long)y * nw + x] : 0u;
-  }
-}
-
-// K6: blockDim = (TW, TH, NP); blockIdx.x = macroblock (row-major).
-template <int TH, int TW, int NP, bool BIDIR>
-__global__ void mc_roll_kernel(Planes p, DirMeta fm, DirMeta bm,
-                               const int32_t* __restrict__ modes, int mbw,
-                               int Hr, int Wr) {
-  constexpr int N = (TH + 1) * win_words<TW>();
-  __shared__ uint32_t win[NP][2][N];
-  const int i = blockIdx.x;
-  const int tx = threadIdx.x, ty = threadIdx.y, pl = threadIdx.z;
-  const int mode = modes[i];
-  const bool coded = (mode & 4) != 0;
-  const bool f = coded && (mode & 1) != 0;
-  const bool b = coded && BIDIR && (mode & 2) != 0;
-  const int t = ty * TW + tx;
-  const int sxf = fm.sx[i], sxb = bm.sx[i];
-  if (f)
-    stage<TH, TW, TH * TW>(win[pl][0], pl ? p.ref0[1] : p.ref0[0], fm.sy[i],
-                           sxf, t, Hr, Wr);
-  if (b)
-    stage<TH, TW, TH * TW>(win[pl][1], pl ? p.ref1[1] : p.ref1[0], bm.sy[i],
-                           sxb, t, Hr, Wr);
-  __syncthreads();
-  const int W = mbw * TW;
-  const long long o =
-      (long long)((i / mbw) * TH + ty) * W + (i % mbw) * TW + tx;
-  int val = 0;
-  if (coded) {
-    const int pf = f ? halfpel_staged<TW>(win[pl][0], ty, tx + (sxf & 3),
-                                          fm.ph[i])
-                     : 0;
-    const int pb = b ? halfpel_staged<TW>(win[pl][1], ty, tx + (sxb & 3),
-                                          bm.ph[i])
-                     : 0;
-    const int pred = (f && b) ? (pf + pb + 1) >> 1 : (f ? pf : pb);
-    val = min(max(pred + (int)(pl ? p.res[1] : p.res[0])[o], 0), 255);
-  }
-  (pl ? p.out[1] : p.out[0])[o] = (uint8_t)val;
-}
-
-template <int TH, int TW, int NP>
-int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
-           int bidir, void* stream) {
-  const Planes p = mp2v::planes_of(ptrs);
-  const DirMeta fm = mp2v::dir_meta(ptrs, 0), bm = mp2v::dir_meta(ptrs, 1);
-  const int32_t* modes = mp2v::modes_of(ptrs);
-  if (n_mb > 0) {
-    const dim3 block(TW, TH, NP);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (bidir)
-      mc_roll_kernel<TH, TW, NP, true>
-          <<<n_mb, block, 0, s>>>(p, fm, bm, modes, mbw, Hr, Wr);
-    else
-      mc_roll_kernel<TH, TW, NP, false>
-          <<<n_mb, block, 0, s>>>(p, fm, bm, modes, mbw, Hr, Wr);
-  }
-  return (int)cudaGetLastError();
-}
 
 constexpr int kThreads = 256;
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
@@ -264,6 +180,134 @@ int launch_luma(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
   return (int)cudaGetLastError();
 }
 
+// One direction's prediction of the lane's tile row (8 pixels, two words)
+// of an 8-wide tile whose window starts at (sy, sx) with phase ph: TH lanes
+// per plane tile, the lane of tile row ty being lane ty of its group of TH.
+// Every lane of the warp calls it together; `use` (the lane's MB uses the
+// direction) gates the loads alone, so the shuffles run on the whole warp
+// whatever the two MBs of an 8x8 warp do.
+template <int TH>
+__device__ __forceinline__ uint2 roll_pred8(const uint32_t* __restrict__ ref,
+                                            int sy, int sx, int ph, bool use,
+                                            int ty, int Hr, int nw) {
+  const int y = sy + ty, x = sx >> 2;
+  const unsigned s = (unsigned)(sx & 3) << 3;
+  const bool vert = (ph & 2) != 0;
+  uint32_t w0 = 0u, w1 = 0u, w2 = 0u;
+  if (use) {
+    w0 = mp2v::word_at(ref, Hr, nw, y, x);
+    w1 = mp2v::word_at(ref, Hr, nw, y, x + 1);
+    w2 = mp2v::word_at(ref, Hr, nw, y, x + 2);
+  }
+  // the row below from the lane of tile row ty + 1; at width TH the last
+  // row's lane gets its own words back and loads row sy + TH instead
+  uint32_t v0 = __shfl_down_sync(kFullWarp, w0, 1, TH);
+  uint32_t v1 = __shfl_down_sync(kFullWarp, w1, 1, TH);
+  uint32_t v2 = __shfl_down_sync(kFullWarp, w2, 1, TH);
+  if (use && vert && ty == TH - 1) {
+    v0 = mp2v::word_at(ref, Hr, nw, y + 1, x);
+    v1 = mp2v::word_at(ref, Hr, nw, y + 1, x + 1);
+    v2 = mp2v::word_at(ref, Hr, nw, y + 1, x + 2);
+  }
+  uint2 p = mp2v::tap_row2(w0, w1, w2, s, ph);
+  if (vert) {
+    const uint2 q = mp2v::tap_row2(v0, v1, v2, s, ph);
+    p = make_uint2(__vavgu4(p.x, q.x), __vavgu4(p.y, q.y));
+  }
+  return p;
+}
+
+// One direction's prediction of the lane's segment of MB i in plane `ref`
+// (see the note at the top); `use` as for roll_pred8, and at 16x16, where a
+// warp holds one MB, the same on every lane.
+template <int TH, int TW>
+__device__ __forceinline__ uint2 uv_pred(const uint8_t* ref, const DirMeta& d,
+                                         int i, bool use, int ty, int lane,
+                                         int Hr, int nw) {
+  const int sy = use ? d.sy[i] : 0;
+  const int sx = use ? d.sx[i] : 0;
+  const int ph = use ? d.ph[i] : 0;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(ref);
+  if constexpr (TW == 16)
+    return roll_pred(w, sy, sx, ph, lane, Hr, nw);
+  else
+    return roll_pred8<TH>(w, sy, sx, ph, use, ty, Hr, nw);
+}
+
+// K6: U and V at the (TH, TW) chroma tile, one 8-pixel row segment per
+// lane, grouped as the note at the top says.
+template <int TH, int TW, bool BIDIR>
+__global__ void __launch_bounds__(kThreads)
+    mc_roll_uv_kernel(Planes p, DirMeta fm, DirMeta bm,
+                      const int32_t* __restrict__ modes, int n_mb, int mbw,
+                      int Hr, int nw) {
+  constexpr int SEGS = TW / 8;       // segments per tile row
+  constexpr int TPP = TH * SEGS;     // lanes per plane tile
+  constexpr int G = mp2v::mbs_per_group(TW);
+  constexpr int TPG = TPP * 2 * G;   // lanes per group: one or two warps
+  static_assert(TPG % 32 == 0 && kThreads % TPG == 0,
+                "a group is whole warps of one block");
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int r = t % TPG;
+  const int i0 = (t / TPG) * G;
+  if (i0 >= n_mb) return;            // whole warps only
+  const int i = i0 + (r / TPP) % G;
+  const bool live = i < n_mb;        // the second MB of the last pair
+  const int pl = r / (TPP * G);
+  const int ty = (r % TPP) / SEGS, seg = r % SEGS;
+  const int lane = t & 31;
+  const int mode = live ? modes[i] : 0;
+  const bool coded = (mode & 4) != 0;
+  const bool f = coded && (mode & 1) != 0;
+  const bool b = BIDIR && coded && (mode & 2) != 0;
+  const long long o = (long long)((i / mbw) * TH + ty) * (mbw * TW) +
+                      (i % mbw) * TW + seg * 8;
+  int4 res = make_int4(0, 0, 0, 0);
+  if (coded)
+    res = *reinterpret_cast<const int4*>((pl ? p.res[1] : p.res[0]) + o);
+  uint2 pf = make_uint2(0u, 0u), pb = pf;
+  if (__any_sync(kFullWarp, f))
+    pf = uv_pred<TH, TW>(pl ? p.ref0[1] : p.ref0[0], fm, i, f, ty, lane, Hr,
+                         nw);
+  if (BIDIR && __any_sync(kFullWarp, b))
+    pb = uv_pred<TH, TW>(pl ? p.ref1[1] : p.ref1[0], bm, i, b, ty, lane, Hr,
+                         nw);
+  uint2 pred = make_uint2(0u, 0u);
+  if (f && b)
+    pred = make_uint2(__vavgu4(pf.x, pb.x), __vavgu4(pf.y, pb.y));
+  else if (f)
+    pred = pf;
+  else if (b)
+    pred = pb;
+  if (coded)
+    pred = make_uint2(mp2v::add_clip4(pred.x, res.x, res.y),
+                      mp2v::add_clip4(pred.y, res.z, res.w));
+  if (live)
+    *reinterpret_cast<uint2*>((pl ? p.out[1] : p.out[0]) + o) = pred;
+}
+
+template <int TH, int TW>
+int launch_uv(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
+              int bidir, void* stream) {
+  if (n_mb > 0) {
+    constexpr int G = mp2v::mbs_per_group(TW);
+    constexpr long long TPG = TH * (TW / 8) * 2 * G;  // lanes per group
+    const long long groups = (n_mb + G - 1) / G;
+    const int blocks = (int)((groups * TPG + kThreads - 1) / kThreads);
+    const Planes p = mp2v::planes_of(ptrs);
+    const DirMeta fm = mp2v::dir_meta(ptrs, 0), bm = mp2v::dir_meta(ptrs, 1);
+    const int32_t* modes = mp2v::modes_of(ptrs);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bidir)
+      mc_roll_uv_kernel<TH, TW, true><<<blocks, kThreads, 0, s>>>(
+          p, fm, bm, modes, n_mb, mbw, Hr, Wr >> 2);
+    else
+      mc_roll_uv_kernel<TH, TW, false><<<blocks, kThreads, 0, s>>>(
+          p, fm, bm, modes, n_mb, mbw, Hr, Wr >> 2);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K5: luma, 16x16 tiles only.  Any other tile is refused before a launch.
@@ -276,10 +320,10 @@ extern "C" int mp2v_mc_roll_luma(MP2V_MC_ARGS) {
 // K6: U and V, at the chroma tile of each format.
 extern "C" int mp2v_mc_roll_uv(MP2V_MC_ARGS) {
   if (th == 8 && tw == 8)
-    return launch<8, 8, 2>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+    return launch_uv<8, 8>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
   if (th == 16 && tw == 8)
-    return launch<16, 8, 2>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+    return launch_uv<16, 8>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
   if (th == 16 && tw == 16)
-    return launch<16, 16, 2>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
+    return launch_uv<16, 16>(ptrs, n_mb, mbw, Hr, Wr, bidir, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // One 4-pixel word of a packed half-pel prediction, shared by the SWAR
 // kernels K7/K8 (csrc/mc_swar.cu, csrc/mc_recon.cu) and K10
 // (csrc/mc_rows.cu); the 8-pixel row segment of the segment kernels K2-K4,
-// K8 (csrc/mc_recon.cu), K7 (csrc/mc_swar.cu) and K5 (csrc/mc_roll.cu), with
-// their grouping of segments into warps and their residual epilogue.
+// K8 (csrc/mc_recon.cu), K7 (csrc/mc_swar.cu) and K5, K6 (csrc/mc_roll.cu),
+// with their grouping of segments into warps and their residual epilogue.
 //
 // A word holds pixels 4x .. 4x+3 of a row, the first at the least
 // significant byte.  Word k of a prediction whose first pixel column is sx
@@ -85,7 +85,7 @@ __device__ __forceinline__ uint2 halfpel_word2(
 }
 
 // One tap row of halfpel_word2 for a caller that holds the row's three
-// aligned words w0..w2 already (K5, csrc/mc_roll.cu): its two words at bit
+// aligned words w0..w2 already (K5, K6, csrc/mc_roll.cu): its two words at bit
 // offset s = 8 * (sx & 3), the a taps, averaged with the b taps one pixel to
 // the right under a horizontal half-pel phase (ph bit 0).
 __device__ __forceinline__ uint2 tap_row2(uint32_t w0, uint32_t w1,

@@ -118,17 +118,24 @@ def idct_blocks_ref(coeffs: torch.Tensor) -> torch.Tensor:
     return (t >> IDCT_SCALE_SHIFT).to(torch.int16)
 
 
-def idct_blocks(coeffs: torch.Tensor) -> torch.Tensor:
-    """(B, 64) int16 -> (B, 8, 8) int16.  CPU tensor: the plain version;
-    CUDA tensor: kernel K1 (``csrc/idct.cu``); anything else raises."""
-    if coeffs.device.type == "cpu":
-        return idct_blocks_ref(coeffs)
-    if coeffs.device.type != "cuda":
-        raise ValueError(f"idct_blocks: no kernel for device {coeffs.device}")
+def _check(coeffs: torch.Tensor) -> None:
+    """Raise unless ``coeffs`` is what kernel K1 takes: a contiguous
+    (B, 64) int16 tensor, 16-byte aligned (the kernel loads each stored row
+    of a block as one 16-byte word).  Runs before the kernel library is
+    loaded, so it holds on any device."""
     if (coeffs.dtype != torch.int16 or coeffs.dim() != 2
             or coeffs.shape[1] != 64 or not coeffs.is_contiguous()):
         raise ValueError("idct_blocks: expected a contiguous (B, 64) int16 "
                          f"tensor, got {tuple(coeffs.shape)} {coeffs.dtype}")
+    if coeffs.data_ptr() % 16:
+        raise ValueError("idct_blocks: the coefficients must be 16-byte "
+                         "aligned (the kernel reads 16-byte rows)")
+
+
+def _launch(coeffs: torch.Tensor) -> torch.Tensor:
+    """Check ``coeffs`` (:func:`_check`) and run kernel K1 on the current
+    stream of its device: (B, 8, 8) int16."""
+    _check(coeffs)
     n = coeffs.shape[0]
     out = torch.empty((n, 8, 8), dtype=torch.int16, device=coeffs.device)
     if n == 0:
@@ -139,3 +146,14 @@ def idct_blocks(coeffs: torch.Tensor) -> torch.Tensor:
     _build.check("mp2v_idct8x8", rc)
     _build.LAUNCHES["idct8x8"] += 1
     return out
+
+
+def idct_blocks(coeffs: torch.Tensor) -> torch.Tensor:
+    """(B, 64) int16 -> (B, 8, 8) int16.  CPU tensor: the plain version;
+    CUDA tensor: kernel K1 (``csrc/idct.cu``), which raises unless the
+    tensor is contiguous and 16-byte aligned; anything else raises."""
+    if coeffs.device.type == "cpu":
+        return idct_blocks_ref(coeffs)
+    if coeffs.device.type != "cuda":
+        raise ValueError(f"idct_blocks: no kernel for device {coeffs.device}")
+    return _launch(coeffs)

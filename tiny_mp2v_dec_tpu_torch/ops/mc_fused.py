@@ -33,10 +33,11 @@ The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
 * ``roll``: :func:`fused_mc_recon_roll` (K5, ``csrc/mc_roll.cu``, replaces
   ``fused_mc_recon``) and :func:`fused_mc_recon_uv_roll` (K6, replaces
   ``fused_mc_recon_uv``) — K2's and K3's function, frame prediction only,
-  each aligned word of an MB's window loaded once: K5 one warp per MB, the
-  words rotated into place by funnel shifts and warp shuffles (it reads the
-  residual 16 bytes at a time, as K2); K6 one block per MB, the window
-  staged in shared memory;
+  each aligned word of an MB's window loaded once by one lane, the words
+  rotated into place by funnel shifts and warp shuffles, one 8-pixel row
+  segment per lane: K5 one warp per MB, K6 a warp per 16x16 plane tile,
+  per plane of two 16x8 MBs, or per U and V of two 8x8 MBs (both read the
+  residual 16 bytes at a time, as K2);
 * ``swar``: the prediction alone, four pixels per 32-bit word
   (:func:`pack_ref_words`), no residual and no coded bit.  K7
   (``csrc/mc_swar.cu``) has two entry points:
@@ -325,7 +326,7 @@ _WORD_READS = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
 # at a time (one 8-pixel row segment per thread); the outputs are allocated
 # by _launch, so only the residual is checked
 _VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
-              "mp2v_mc_field_uv", "mp2v_mc_roll_luma"}
+              "mp2v_mc_field_uv", "mp2v_mc_roll_luma", "mp2v_mc_roll_uv"}
 
 
 def _check(entry, refs0, refs1, ress, meta, h, w):
@@ -509,7 +510,8 @@ def fused_mc_recon_uv_roll(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb,
                            w: int = 8, bidir: bool = True):
     """K3's function, frame prediction, through kernel K6: (U, V) pairs in
     and out, planar.  Its plain version is :func:`fused_mc_recon_uv_ref`.
-    Field tuples raise."""
+    Field tuples raise.  On the card the residual planes must be 16-byte
+    aligned, as K3's."""
     _frame_only("fused_mc_recon_uv_roll", fld_f, fld_b)
     if _device_type("fused_mc_recon_uv_roll", res[0]) == "cpu":
         return fused_mc_recon_uv_ref(ref0, ref1, res, syf, sxf, phf, syb,

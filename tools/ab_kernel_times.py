@@ -10,21 +10,26 @@ which side runs first (P C, C P, P C, ...).  Each process
 
 * builds its checkout's CUDA kernels from their sources and times the
   build (``_build.build(force=True)``, then loading the library);
-* compiles its ``csrc/mc_recon.cu`` with ``-Xptxas -v`` and keeps the
-  stack size that ``ptxas`` reports for each kernel instantiation;
+* compiles its ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu`` and
+  ``csrc/idct.cu`` with ``-Xptxas -v`` and keeps the registers, stack
+  frame and spilled bytes that ``ptxas`` reports for each kernel
+  instantiation (:func:`ptxas_report`);
 * compiles ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu`` and
   ``csrc/mc_swar.cu`` to cubins and keeps a digest of the SASS
   (``cuobjdump -sass``) of each instantiation of the controls
   (:func:`sass_digests`): every form of the segment kernel
-  ``mc_seg_kernel`` (K2, K3, K4, K8), K6's forms of ``mc_roll_kernel`` and
-  K7's one-component ``mc_swar_kernel``;
-* times K1 (``chip_smoke.check_idct``: 131,072 blocks) and, by
-  ``chip_smoke.check_mc`` (``chip_smoke.mc_inputs``, device time per call
-  by ``chip_smoke.cuda_ms``, each form checked against its plain version
+  ``mc_seg_kernel`` (K2, K3, K4, K8), K5's ``mc_roll_luma_kernel`` and
+  K7's one-component ``mc_swar_kernel``; and K1's instructions counted by
+  opcode (:func:`sass_opcodes`);
+* times K1 (``chip_smoke.check_idct``: 131,072 and 196,608 blocks, each
+  warm and cold) and, by ``chip_smoke.check_mc``
+  (``chip_smoke.mc_inputs``, device time per call by
+  ``chip_smoke.cuda_ms``, each form checked against its plain version
   first), bidir and forward-only: K2 (1088x1920 luma), K3 at every chroma
   tile (2 x 544x960 at 8x8, 2 x 1088x960 at 16x8, 2 x 1088x1920 at
-  16x16), K4 luma and U+V at 16x8, K5 luma, K6 at 8x8, K7 luma and one
-  544x960 plane at 8x8, K8 luma and one 1088x960 plane at 16x8, each with
+  16x16), K4 luma and U+V at 16x8, K5 luma, K6 at every chroma tile, K7
+  luma and one 544x960 plane at 8x8, K8 luma and one 1088x960 plane at
+  16x8, each with
   the field bit on half the MBs; K4 luma and K8 luma again with it on the
   interlaced fixture's share (9,320 of 130,560 MBs); K2 and K3 on a plane
   of one MB (``chip_smoke.one_mb_times``: the fixed cost of a launch); and
@@ -37,9 +42,8 @@ median of each side, the parent's interquartile range, whether the
 medians lie within it of each other, and the pairs in which the change
 read lower; ``cards``: the card's name and power limit as ``nvidia-smi``
 gave them to each process; and ``control_sass_equal``: whether both sides
-compiled the
-controls (K2, K3, K4, K8, K6, K7's one-component form) to the same
-machine code.  ``--out`` also keeps each
+compiled the controls (K2, K3, K4, K8, K5, K7's one-component form) to the
+same machine code.  ``--out`` also keeps each
 process's full output there.  Needs one CUDA card and ``nvcc``; imports
 nothing of JAX.
 """
@@ -70,6 +74,8 @@ MC = (("K2 luma", 1088, 1920, 16, 16, False, False, "mxu", 0.5),
       ("K4 uv 16x8", 1088, 960, 16, 8, True, True, "mxu", 0.5),
       ("K5 luma", 1088, 1920, 16, 16, False, False, "roll", 0.5),
       ("K6 uv 8x8", 544, 960, 8, 8, True, False, "roll", 0.5),
+      ("K6 uv 16x8", 1088, 960, 16, 8, True, False, "roll", 0.5),
+      ("K6 uv 16x16", 1088, 1920, 16, 16, True, False, "roll", 0.5),
       ("K7 luma", 1088, 1920, 16, 16, False, False, "swar", 0.5),
       ("K7 8x8", 544, 960, 8, 8, False, False, "swar", 0.5),
       ("K8 luma", 1088, 1920, 16, 16, False, True, "swar", 0.5),
@@ -94,30 +100,46 @@ def _smoke():
     return mod
 
 
-def ptxas_stacks(nvcc: str, root: str) -> list:
-    """Per-thread stack bytes ``ptxas`` reports for each kernel of
-    ``root``'s ``csrc/mc_recon.cu``, in the order it compiles them."""
-    src = os.path.join(root, "tiny_mp2v_dec_tpu_torch", "csrc", "mc_recon.cu")
+# the sources whose kernels ptxas_report lists
+PTXAS_SOURCES = ("mc_recon", "mc_roll", "idct")
+
+
+def ptxas_report(nvcc: str, root: str) -> dict:
+    """Registers, stack frame and spilled bytes (stores + loads) that
+    ``ptxas -v`` reports for each kernel of ``root``'s
+    :data:`PTXAS_SOURCES`, keyed by the kernel's mangled name."""
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-Xptxas", "-v", "-c", "-o",
-             os.path.join(tmp, "mc_recon.o"), src],
-            capture_output=True, text=True, check=True)
-    text = out.stderr + out.stdout
-    # ptxas prints one or the other, depending on its version
-    found = (re.findall(r"(\d+) bytes cumulative stack size", text)
-             or re.findall(r"(\d+) bytes stack frame", text))
-    return [int(m) for m in found]
+        for name in PTXAS_SOURCES:
+            src = os.path.join(root, "tiny_mp2v_dec_tpu_torch", "csrc",
+                               name + ".cu")
+            p = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, name + ".o"), src],
+                capture_output=True, text=True, check=True)
+            for fn in (p.stderr + p.stdout).split(
+                    "Compiling entry function '")[1:]:
+                kernel = fn.split("'", 1)[0]
+                # ptxas prints one or the other, depending on its version
+                stack = (re.search(r"(\d+) bytes cumulative stack size", fn)
+                         or re.search(r"(\d+) bytes stack frame", fn))
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", fn)
+                regs = re.search(r"Used (\d+) registers", fn)
+                out[kernel] = {
+                    "registers": int(regs[1]) if regs else None,
+                    "stack": int(stack[1]) if stack else None,
+                    "spill": int(spill[1]) + int(spill[2]) if spill else None}
+    return out
 
 
-def control_sass(nvcc: str, root: str) -> dict:
-    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu``,
-    ``csrc/mc_roll.cu`` and ``csrc/mc_swar.cu``, each compiled to a cubin as
-    the build compiles it."""
+def sass_listing(nvcc: str, root: str, names) -> str:
+    """``cuobjdump -sass`` of ``root``'s ``csrc/<name>.cu`` for each of
+    ``names``, each compiled to a cubin as the build compiles it."""
     sass = ""
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("mc_recon", "mc_roll", "mc_swar"):
+        for name in names:
             cubin = os.path.join(tmp, name + ".cubin")
             subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -128,38 +150,66 @@ def control_sass(nvcc: str, root: str) -> dict:
             sass += subprocess.run(
                 [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                  cubin], capture_output=True, text=True, check=True).stdout
-    return sass_digests(sass)
+    return sass
+
+
+def control_sass(nvcc: str, root: str) -> dict:
+    """:func:`sass_digests` of ``root``'s ``csrc/mc_recon.cu``,
+    ``csrc/mc_roll.cu`` and ``csrc/mc_swar.cu``."""
+    return sass_digests(sass_listing(nvcc, root,
+                                     ("mc_recon", "mc_roll", "mc_swar")))
+
+
+def _functions(sass: str):
+    """(name line, body) of each function of a ``cuobjdump -sass`` listing,
+    the body cut at cuobjdump's closing line of dots."""
+    for fn in sass.split("Function : ")[1:]:
+        name, _, body = fn.partition("\n")
+        yield name, re.split(r"\n\s*\.{4,}\s*\n", body + "\n")[0]
+
+
+def sass_opcodes(sass: str, kernel: str) -> dict:
+    """Instructions of the function whose name holds ``kernel`` in a
+    ``cuobjdump -sass`` listing, counted by opcode (without its modifiers
+    or predicate), with their ``total``.  K1 is bound by its integer
+    instructions, so their number and mix are what a change of it moves."""
+    out = {}
+    for name, body in _functions(sass):
+        if kernel not in name:
+            continue
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]"
+                         r"[A-Z0-9_]*)", line)
+            if m:
+                out[m[1]] = out.get(m[1], 0) + 1
+    return {"total": sum(out.values()),
+            **dict(sorted(out.items(), key=lambda kv: -kv[1]))}
 
 
 # the controls' mangled names: every form of the segment kernel (tile rows,
-# columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8 1 0), K6's
-# forms of the staged kernel (tile rows, columns, 2 planes, bidir) and K7's
-# one-component word kernel (tile rows, columns, bidir)
+# columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8 1 0), K5's
+# warp kernel (bidir) and K7's one-component word kernel (tile rows,
+# columns, bidir)
 _CONTROLS = (
     (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)EE",
      "seg {}x{} np={} bidir={} field={} recon={}"),
-    (r"mc_roll_kernelILi(\d+)ELi(\d+)ELi2ELb(\d)EE",
-     "roll uv {}x{} bidir={}"),
+    (r"mc_roll_luma_kernelILb(\d)EE", "roll luma bidir={}"),
     (r"mc_swar_kernelILi(\d+)ELi(\d+)ELb(\d)EE", "swar {}x{} bidir={}"))
 
 
 def sass_digests(sass: str) -> dict:
     """sha256 of each instantiation of the controls in ``cuobjdump -sass``
-    output (:data:`_CONTROLS`: the forms of ``mc_seg_kernel``, K6's forms
-    of ``mc_roll_kernel``, K7's ``mc_swar_kernel``), keyed by its kernel and
-    its template
-    arguments: the lines of its body up to
+    output (:data:`_CONTROLS`: the forms of ``mc_seg_kernel``, K5's
+    ``mc_roll_luma_kernel``, K7's ``mc_swar_kernel``), keyed by its kernel
+    and its template arguments: the lines of its body up to
     cuobjdump's closing line of dots — each instruction and its encoding —
     without the function's name line, what follows the body (after the
     last function of a listing, the next listing's header), runs of
     blanks (cuobjdump pads columns to the file's longest instruction) or
-    the file-wide numbering of branch labels.  Other kernels (K5's, K7's
+    the file-wide numbering of branch labels.  Other kernels (K6's, K7's
     picture form, the empty kernel) are left out."""
     out = {}
-    for fn in sass.split("Function : ")[1:]:
-        name, _, body = fn.partition("\n")
-        # the function ends at cuobjdump's line of dots
-        body = re.split(r"\n\s*\.{4,}\s*\n", body + "\n")[0]
+    for name, body in _functions(sass):
         for pattern, key in _CONTROLS:
             m = re.search(pattern, name)
             if m:
@@ -193,10 +243,15 @@ def run_one(root: str) -> dict:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True,
                check=True).stdout.strip(),
-           "stacks": ptxas_stacks(_build.nvcc_path(), root),
-           "control_sass": control_sass(_build.nvcc_path(), root)}
+           "ptxas": ptxas_report(_build.nvcc_path(), root),
+           "control_sass": control_sass(_build.nvcc_path(), root),
+           "k1_sass": sass_opcodes(sass_listing(_build.nvcc_path(), root,
+                                                ("idct",)),
+                                   "idct8x8_kernel")}
     rng = np.random.default_rng(2024)
-    rec["K1 idct8x8"] = smoke.check_idct(torch, np, rng)["ms"]
+    for n, r in smoke.check_idct(torch, np, rng)["blocks"].items():
+        rec[f"K1 idct8x8 {n} warm"] = r["ms"]
+        rec[f"K1 idct8x8 {n} cold"] = r["cold_ms"]
     for name, H, W, th, tw, uv, field, impl, share in MC:
         r = smoke.check_mc(torch, np, rng, name, H, W, th, tw, uv=uv,
                            field=field, impl=impl, field_share=share)
@@ -219,7 +274,7 @@ def summary(runs: list, parent: str, change: str) -> dict:
     side = {r: [x for x in runs if x["root"] == r] for r in (parent, change)}
     out = {}
     for key in runs[0]:
-        if key in ("root", "card", "stacks", "control_sass"):
+        if key in ("root", "card", "ptxas", "control_sass", "k1_sass"):
             continue
         p = [x[key] for x in side[parent]]
         c = [x[key] for x in side[change]]

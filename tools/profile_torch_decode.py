@@ -12,7 +12,8 @@ with ``gop_chunk=16`` on ``cuda``:
   (pairs -> rows, K1, dense grid), and the per-picture reconstruction loop
   (residual layout, mc_meta / mc_field_meta, the MC kernels, packing);
 * profiler: one unsynchronized decode under ``torch.profiler``, device
-  time summed by kernel name, and the device's busy share of the wall.
+  time and launches of every kernel (by name: each template form on its
+  own), and the device's busy share of the wall.
 
 The MC kernels are those of ``MP2V_MC_IMPL`` (``mxu``, the default: K2 +
 K3 or K4; ``roll``: K5 + K6; ``swar``: K7 or K8).  Prints one JSON object
@@ -119,7 +120,7 @@ def main() -> int:
                if a.device_type != DeviceType.CPU
                and a.self_device_time_total > 0}
     busy_ms = sum(v[0] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    by_time = sorted(kernels.items(), key=lambda kv: -kv[1][0])
 
     med = lambda xs: statistics.median(xs)  # noqa: E731
     out = {
@@ -143,8 +144,9 @@ def main() -> int:
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (prof_wall * 1e3),
         "device_launches": sum(v[1] for v in kernels.values()),
-        "top_device_ms": [{"name": n, "ms": v[0], "count": v[1]}
-                          for n, v in top],
+        # every device row, so that a kernel's forms can be summed
+        "device_ms": [{"name": n, "ms": v[0], "count": v[1]}
+                      for n, v in by_time],
     }
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
