@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equality, as all arithmetic is integer — and timed against it (device
    time per call, see :func:`cuda_ms`); then K9 and K10 (the MC profiler's
    whole-plane prediction, bytes and 4-pixel words) at the profiler's
-   1080p inputs and again with every window at the bottom and right edges;
+   1080p inputs, with every window at the bottom and right edges, at every
+   ``sx & 3`` at every phase, each also on the tightest plane they take
+   (``profile_mc_variants.row_case``), and on a 1088x1904 plane;
    then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
    plane of uncoded MBs (:func:`uncoded_time`), K2, K7 and K8 on a plane of
    MBs that all predict in both directions (:func:`mode7_times`) and a
@@ -554,22 +556,22 @@ def mc_read_bytes(torch, meta, H: int, W: int, th: int, tw: int,
 
 
 def check_rows(torch):
-    """K9 and K10 against their plain versions on the MC profiler's 1080p
-    inputs, and again with every MB's window at the bottom edge, the right
-    edge or both (the +1 taps in the zero padding) at every phase.  The
-    words of K10 are compared as words, its error read on the pixels.
-    Returns the two records, timed on the profiler's inputs."""
-    from types import SimpleNamespace
-
+    """K9 and K10 against their plain versions on each case of
+    ``profile_mc_variants.row_case`` at the MC profiler's 1080p inputs (its
+    starts, edge starts, every ``sx & 3`` at every phase, each also on the
+    tightest plane the kernels take) and on a 1088x1904 plane, whose 119
+    MBs a row put the kernels' 8-MB blocks across MB rows and leave the
+    last block 4 MBs.  The words of K10 are compared as words, its error
+    read on the pixels.  Returns the two records, timed on the profiler's
+    inputs."""
     from tiny_mp2v_dec_tpu_torch.ops import mc_rows
     from tiny_mp2v_dec_tpu_torch.ops.mc_fused import unpack_words
-    from tiny_mp2v_dec_tpu_torch.tools.profile_mc_variants import make_inputs
-    x = make_inputs(device="cuda")
-    i = torch.arange(x.sy.numel(), device=x.sy.device, dtype=torch.int32)
-    edge = SimpleNamespace(**vars(x))
-    edge.sy = torch.where(i % 3 != 1, x.H - 16, x.sy)
-    edge.sx = torch.where(i % 3 != 0, x.W - 16, x.sx)
-    edge.sxq, edge.rb, edge.ph = edge.sx >> 2, edge.sx & 3, (i // 3) % 4
+    from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv
+    x = pmv.make_inputs(device="cuda")
+    cases = [(f"{s} starts{', tight plane' if tight else ''}",
+              pmv.row_case(x, s, tight))
+             for tight in (False, True) for s in pmv.ROW_STARTS] + [
+        ("1088x1904 plane", pmv.make_inputs(W=1904, device="cuda"))]
     forms = {  # name: (kernel, wrapper, plain version, inputs, unpack)
         "mc_row": ("K9", mc_rows.mc_row_pred, mc_rows.mc_row_pred_ref,
                    ("plane_pad", "sy", "sx", "ph"), None),
@@ -579,11 +581,13 @@ def check_rows(torch):
     }
     recs = {}
     for name, (k, fn, ref_fn, names, unpack) in forms.items():
-        err = 0
-        for label, v in (("profiler inputs", x), ("edge starts", edge)):
+        err, out = 0, None
+        for label, v in cases:
             args = [getattr(v, a) for a in names]
-            got = fn(*args, H=x.H, W=x.W)
-            ref = ref_fn(*args, H=x.H, W=x.W)
+            got = fn(*args, H=v.H, W=v.W)
+            ref = ref_fn(*args, H=v.H, W=v.W)
+            if out is None:     # the profiler's starts: the record's bound
+                out = got
             torch.cuda.synchronize()
             e = max_abs_err(torch, *((unpack(got), unpack(ref)) if unpack
                                      else (got, ref)))
@@ -595,13 +599,14 @@ def check_rows(torch):
         ms = cuda_ms(torch, lambda: fn(*args, H=x.H, W=x.W))
         plain_ms = cuda_ms(torch, lambda: ref_fn(*args, H=x.H, W=x.W))
         print(f"{k} {name}: {x.H}x{x.W} from a {tuple(args[0].shape)} "
-              f"plane, equal to plain (edge starts too); kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms")
+              f"plane, equal to plain (and on {len(cases) - 1} more cases: "
+              f"edges, every sx & 3 at every phase, the tight plane, "
+              f"1088x1904); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         # the plane counts by the bytes the windows need, not its padding
         read = window_bytes(torch, x.sy, x.sx, x.ph, x.H, x.W,
                             1 if unpack is None else 4)
         recs[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      **bound(args[1:], (got,), OPS_PER_OUT[name], read)}
+                      **bound(args[1:], (out,), OPS_PER_OUT[name], read)}
     return recs
 
 

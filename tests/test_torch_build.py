@@ -83,6 +83,16 @@ def test_ab_summary_counts_pairs():
     assert s["k"]["parent_iqr"] == pytest.approx(13.5 - 8.5)
 
 
+def test_ab_summary_of_runs_without_sass():
+    """Runs made with ``--only`` carry no ptxas report or SASS: the
+    summary has their readings and cards, and no SASS verdict."""
+    runs = [{"root": "P", "card": "a", "K9 mc_row": 2.0},
+            {"root": "C", "card": "a", "K9 mc_row": 1.0}]
+    s = ab_kernel_times.summary(runs, "P", "C")
+    assert list(s) == ["K9 mc_row", "cards"]
+    assert s["K9 mc_row"]["change_wins"] == 1
+
+
 _SASS = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab",
          "roll luma bidir=1": "cd"}
 
@@ -94,9 +104,9 @@ _SASS = {"seg 16x16 np=1 bidir=1 field=0 recon=1": "ab",
     ({}, {}, False),
 ], ids=["same", "one-differs", "one-missing", "none-found"])
 def test_ab_summary_field_sass(parent_sass, change_sass, equal):
-    """The controls' machine code (the segment kernel's forms, K5, K7's
-    word kernel) counts as unchanged only when both sides compiled the same
-    instantiations to the same SASS, and at least one."""
+    """The controls' machine code (the segment kernel's forms, K5, K6,
+    K7's word kernel) counts as unchanged only when both sides compiled the
+    same instantiations to the same SASS, and at least one."""
     runs = [{"root": "P", "card": "a", "ptxas": {},
              "control_sass": parent_sass, "k": 1.0},
             {"root": "C", "card": "a", "ptxas": {},
@@ -107,10 +117,9 @@ def test_ab_summary_field_sass(parent_sass, change_sass, equal):
 
 def _sass(newer, pad, label, op="IADD3"):
     """A ``cuobjdump -sass`` listing of the controls — K2's, K4's and K8's
-    forms of the segment kernel, K5's warp kernel, one of K7's word kernel
-    — beside kernels that are none: K6 as an older source has it (``newer``
-    False: the staged kernel's two-plane form) or a newer one (its warp
-    kernel, and K7's picture form), and the empty kernel."""
+    forms of the segment kernel, K5's and K6's warp kernels, one of K7's
+    word kernel — beside kernels that are none: K7's picture form, which
+    only a ``newer`` source has, and the empty kernel."""
     def fn(name, op):
         return (f"\t\tFunction : _ZN3_GN15{name}\n"
                 f"        /*0000*/{pad}{op} R1, R2, R3 ;{pad}/* 0x0001 */\n"
@@ -118,11 +127,10 @@ def _sass(newer, pad, label, op="IADD3"):
                 f".L_x_{label}:\n        /*0020*/{pad}EXIT ;\n"
                 f"\t\t..........\n\n\n")
     seg = "mc_seg_kernelILi16ELi16ELi1ELb1E"
-    k6 = ("mc_roll_uv_kernelILi8ELi8ELb1EEEvv" if newer
-          else "mc_roll_kernelILi8ELi8ELi2ELb1EEEvv")
     # K2 last: a second listing's header follows its body
     names = {seg + "Lb1ELb1EEEvv": "LDG", seg + "Lb1ELb0EEEvv": "STG",
-             "mc_roll_luma_kernelILb1EEEvv": "SHFL", k6: "IMAD",
+             "mc_roll_luma_kernelILb1EEEvv": "SHFL",
+             "mc_roll_uv_kernelILi8ELi8ELb1EEEvv": "IMAD",
              "mc_swar_kernelILi8ELi8ELb1EEEvv": "LOP3",
              "empty_kernelEv": "NOP", seg + "Lb0ELb1EEEvv": op}
     if newer:
@@ -133,15 +141,16 @@ def _sass(newer, pad, label, op="IADD3"):
 
 def test_sass_digests_ignore_layout():
     """Column padding, what follows a function's body and the file-wide
-    label numbering do not count; a changed opcode does; K6 and the empty
-    kernel are left out, so an older and a newer source give the same
-    keys."""
+    label numbering do not count; a changed opcode does; K7's picture form
+    and the empty kernel are left out, so an older and a newer source give
+    the same keys."""
     parent = ab_kernel_times.sass_digests(_sass(False, " " * 19, 3))
     same = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12))
     other = ab_kernel_times.sass_digests(_sass(True, " " * 7, 12,
                                                op="IADD"))
     assert sorted(parent) == [
         "roll luma bidir=1",
+        "roll uv 8x8 bidir=1",
         "seg 16x16 np=1 bidir=1 field=0 recon=1",
         "seg 16x16 np=1 bidir=1 field=1 recon=0",
         "seg 16x16 np=1 bidir=1 field=1 recon=1",

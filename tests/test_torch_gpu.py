@@ -6,7 +6,8 @@ right edges and at C_1 = -1, every ``sx_r & 3`` at every phase, every MB
 field-predicted; K5, K6 and K7's picture form on every frame kind; K3, K4,
 K6, K7 and K8 at the chroma tile of every format; K1 from one block to the
 interlaced fixture's 196,608, over all of int16;
-K9 and K10 at the MC profiler's shapes and edge starts), both 1080-line
+K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
+at every phase, on the tightest plane and at 1088x1904), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
 profiler's parity run and the kernel gate.
 
@@ -552,27 +553,31 @@ def test_roll_with_field_support_refused_on_cuda():
         DeviceRecon(geom, dev, field_support=True, mc_impl="roll")
 
 
-def _rows_inputs(edge):
-    """The MC profiler's 1080p inputs on the card; with ``edge`` every MB's
-    window at the bottom edge, the right edge or both, at every phase."""
-    from tiny_mp2v_dec_tpu_torch.tools.profile_mc_variants import make_inputs
-    x = make_inputs(device="cuda")
-    if edge:
-        i = torch.arange(x.sy.numel(), device="cuda", dtype=torch.int32)
-        x.sy = torch.where(i % 3 != 1, x.H - 16, x.sy)
-        x.sx = torch.where(i % 3 != 0, x.W - 16, x.sx)
-        x.sxq, x.rb, x.ph = x.sx >> 2, x.sx & 3, (i // 3) % 4
-    return x
+def _rows_inputs(case):
+    """The MC profiler's 1080p inputs on the card at the starts of
+    ``profile_mc_variants.row_case`` (``profiler``, ``edges``,
+    ``sx_phases``), each also on the tightest plane the kernels take
+    (``-tight``); or the profiler's draw at 1088x1904, whose 119 MBs a row
+    put the kernels' 8-MB blocks across MB rows and leave the last block 4
+    MBs (``1904``)."""
+    from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv
+    if case == "1904":
+        return pmv.make_inputs(W=1904, device="cuda")
+    starts, _, tight = case.partition("-")
+    return pmv.row_case(pmv.make_inputs(device="cuda"), starts, bool(tight))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("edge", [False, True])
-def test_mc_row_kernels_match_plain(edge):
-    """K9 and K10 against their plain versions at the profiler's shapes:
-    the (1120, 2048) byte plane and the (1120, 640) word plane."""
+@pytest.mark.parametrize("case", ["profiler", "edges", "sx_phases",
+                                  "profiler-tight", "edges-tight",
+                                  "sx_phases-tight", "1904"])
+def test_mc_row_kernels_match_plain(case):
+    """K9 and K10 against their plain versions at the profiler's shapes —
+    the (1120, 2048) byte plane and the (1120, 640) word plane — on the
+    tightest plane they take and at 1088x1904, one launch each."""
     _require_cuda()
     from tiny_mp2v_dec_tpu_torch.ops import mc_rows
-    x = _rows_inputs(edge)
+    x = _rows_inputs(case)
     before = dict(_build.LAUNCHES)
     got = mc_rows.mc_row_pred(x.plane_pad, x.sy, x.sx, x.ph, H=x.H, W=x.W)
     gotw = mc_rows.mc_row_pred_packed(x.plane32, x.sy, x.sxq, x.rb, x.ph,
@@ -588,6 +593,39 @@ def test_mc_row_kernels_match_plain(edge):
     assert torch.equal(gotw, mc_rows.mc_row_pred_packed_ref(
         x.plane32, x.sy, x.sxq, x.rb, x.ph, H=x.H, W=x.W))
     assert torch.equal(mc_fused.unpack_words(gotw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["odd width", "misaligned", "W + 4 bytes"])
+def test_mc_row_refuses_a_plane_it_cannot_read_as_words(fault):
+    """K9 and K10 read their planes as 16-byte quads: on the card a K9 plane
+    of odd width, either plane one element past a quad or of rows of W + 4
+    bytes raises before any launch (no plain fallback)."""
+    _require_cuda()
+    from tiny_mp2v_dec_tpu_torch.ops import mc_rows
+    x = _rows_inputs("profiler")
+    before = dict(_build.LAUNCHES)
+    for packed in (False, True):
+        plane = x.plane32 if packed else x.plane_pad
+        Hp, Wp = plane.shape
+        if fault == "odd width":
+            if packed:
+                continue
+            plane = torch.zeros((Hp, x.W + 1), dtype=plane.dtype,
+                                device="cuda")
+        elif fault == "W + 4 bytes":
+            plane = torch.zeros((Hp, (x.W + 4) // plane.element_size()),
+                                dtype=plane.dtype, device="cuda")
+        else:
+            plane = torch.zeros(Hp * Wp + 1, dtype=plane.dtype,
+                                device="cuda")[1:].view(Hp, Wp)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            if packed:
+                mc_rows.mc_row_pred_packed(plane, x.sy, x.sxq, x.rb, x.ph,
+                                           H=x.H, W=x.W)
+            else:
+                mc_rows.mc_row_pred(plane, x.sy, x.sx, x.ph, H=x.H, W=x.W)
+    assert dict(_build.LAUNCHES) == before
 
 
 @pytest.mark.cuda

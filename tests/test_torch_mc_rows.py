@@ -2,8 +2,9 @@
 the JAX MC profiling script (``tools/profile_mc_variants.py``) — its
 ``variant_a`` at 1080p, and its two Pallas kernel bodies in interpret mode
 at 8 x 3 MBs with the script's geometry globals patched — the edge starts
-at every phase, the JAX K10's sign-fill fault, and the wrappers.  All
-comparisons are exact."""
+at every phase, the JAX K10's sign-fill fault, the kernels' warp scheme
+modelled lane by lane on both layouts and on the tightest plane they take,
+and the wrappers and their refusals.  All comparisons are exact."""
 import importlib.util
 import os
 
@@ -18,7 +19,8 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from tiny_mp2v_dec_tpu.ops.mc import pad_for_mc as jax_pad  # noqa: E402
-from tiny_mp2v_dec_tpu_torch.ops import _build, mc_rows  # noqa: E402
+from test_torch_mc_words import _tap_row2  # noqa: E402
+from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused, mc_rows  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv  # noqa
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -253,3 +255,151 @@ def test_row_wrappers_take_no_kernel_on_cpu_and_refuse_what_they_cannot():
         mc_rows.mc_row_pred(x.plane_pad, x.sy.long(), x.sx, x.ph, **kw)
     with pytest.raises(ValueError, match="whole number"):
         mc_rows.mc_row_pred(x.plane_pad, x.sy, x.sx, x.ph, H=40, W=x.W)
+
+
+def _quad_direction(words, sy, sx, ph):
+    """``quad_pred`` (csrc/mc_rows.cu) for one direction of one 16x16 tile,
+    lane 2*ty + seg holding segment ``seg`` of tile row ``ty``: the (32, 2)
+    int64 prediction words from one 16-byte load per lane — quad
+    ``(sx >> 4) + seg`` of row ``sy + ty`` of ``words`` — the two words the
+    pair swaps (``pick3``), the three each lane picks at offset
+    ``(sx >> 2) & 3``, and under a vertical phase the row below from
+    lane + 2, the lanes of tile row 15 loading row ``sy + 16``.  Each load is logged; the log must hold
+    the window's two quads of each of its rows exactly once."""
+    lane = torch.arange(32)
+    ty, seg = lane >> 1, lane & 1
+    q, r = sx >> 4, (sx >> 2) & 3
+    s = torch.full((32,), (sx & 3) << 3)
+    quads = words.reshape(words.shape[0], -1, 4)
+    loads = []
+
+    def load(rows, lanes):
+        cols = q + seg
+        loads.extend(zip(rows[lanes].tolist(), cols[lanes].tolist()))
+        return torch.where(lanes[:, None], quads[torch.where(lanes, rows, 0),
+                                                 torch.where(lanes, cols, 0)],
+                           0)
+
+    def pick3(v):
+        one = (seg == 1)[:, None]
+        o = torch.where(one, v[:, :2], v[:, 2:])[lane ^ 1]  # two shuffles
+        a = torch.where(one, torch.cat([o, v], 1), torch.cat([v, o], 1))
+        return [a[:, r + k] for k in range(3)]
+
+    w = pick3(load(sy + ty, torch.ones(32, dtype=torch.bool)))
+    p = _tap_row2(*w, s, ph)
+    vert = bool(ph & 2)
+    if vert:
+        down = torch.where(lane + 2 < 32, lane + 2, lane)  # __shfl_down_sync
+        last = ty == 15
+        e = pick3(load(sy + ty + 1, last))
+        v = [torch.where(last, e[k], w[k][down]) for k in range(3)]
+        p = [mc_fused.avg_up(p[k], b) for k, b in enumerate(_tap_row2(*v, s,
+                                                                       ph))]
+    assert sorted(loads) == [(row, c) for row in range(sy, sy + 16 + vert)
+                             for c in (q, q + 1)]
+    return torch.stack(p, dim=1)
+
+
+def _warp_model(x, packed):
+    """``mc_row_warp_kernel`` (csrc/mc_rows.cu) lane by lane: per MB the
+    clamped start (K10: ``4 * sxq + rb``) and the phase, one warp on K9's
+    byte plane read as words or on K10's word plane, through
+    :func:`_quad_direction` — then each block's 8 MBs through the shared
+    slots ``[c][ty ^ c]`` and out by rows.
+    Returns the (H, W/4) int32 words."""
+    if packed:
+        words, sx = x.plane32, x.sxq.to(torch.int64) * 4 + x.rb
+    else:
+        words, sx = mc_fused.pack_ref_words(x.plane_pad), x.sx
+    words = words.to(torch.int64) & 0xFFFFFFFF
+    sy, sx = mc_rows._starts(x.sy, sx, x.H, x.W)
+    mbw, n = x.W // 16, sy.numel()
+    lane = torch.arange(32)
+    out = torch.zeros((x.H, x.W // 4), dtype=torch.int64)
+    for i0 in range(0, n, 8):
+        slots = torch.zeros((16, 16, 2), dtype=torch.int64)
+        for i in range(i0, min(i0 + 8, n)):
+            c = 2 * (i - i0) + (lane & 1)
+            slots[c, (lane >> 1) ^ c] = _quad_direction(
+                words, int(sy[i]), int(sx[i]), int(x.ph[i]))
+        for t in range(256):
+            ty, c = t >> 4, t & 15
+            j = i0 + (c >> 1)
+            if j < n:
+                col = (j % mbw) * 4 + (c & 1) * 2
+                out[(j // mbw) * 16 + ty, col:col + 2] = slots[c, ty ^ c]
+    return mc_fused.words_to_int32(out)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("starts", pmv.ROW_STARTS)
+@pytest.mark.parametrize("plane", ["script", "tight"])
+@pytest.mark.parametrize("geometry", [SMALL, (48, 80)], ids=["8x3", "5x3"])
+def test_warp_scheme_equals_plain_and_variant_a(geometry, plane, starts,
+                                                packed):
+    """The kernels' warp scheme (one warp per MB; 16-byte window loads;
+    the block's MBs stored by rows), on K9's bytes viewed as words
+    and on K10's words, equals the plain version and the script's
+    ``variant_a``: at 8 x 3 MBs and at 5 x 3 (blocks across MB rows, a
+    last block of 7 MBs), on the script's padded plane and on the tightest
+    one, at the script's starts, at the edges at every phase and at every
+    ``sx & 3`` at every phase."""
+    x = pmv.row_case(pmv.make_inputs(*geometry, device="cpu"), starts,
+                     tight=plane == "tight")
+    if starts == "sx_phases":
+        assert len(set(zip(_np(x.rb), _np(x.ph)))) == min(16, x.sy.numel())
+    got = _warp_model(x, packed)
+    if packed:
+        want = mc_rows.mc_row_pred_packed_ref(x.plane32, x.sy, x.sxq, x.rb,
+                                              x.ph, H=x.H, W=x.W)
+        assert torch.equal(got, want)
+    else:
+        want = mc_rows.mc_row_pred_ref(x.plane_pad, x.sy, x.sx, x.ph, H=x.H,
+                                       W=x.W)
+        assert torch.equal(mc_fused.unpack_words(got), want)
+    np.testing.assert_array_equal(_np(mc_fused.unpack_words(got)),
+                                  _jax_variant_a(x))
+
+
+def _unquadded(x, fault, packed):
+    """A plane of the script's rows that the kernels cannot read as 16-byte
+    quads: K9's bytes or K10's words, of an odd width (K9), of rows of
+    W + 4 bytes, or a contiguous view one element past the allocation."""
+    dtype = torch.int32 if packed else torch.uint8
+    Hp, Wp = (x.plane32 if packed else x.plane_pad).shape
+    if fault == "odd width":
+        return torch.zeros((Hp, x.W + 1), dtype=dtype)
+    if fault == "W + 4 bytes":
+        return torch.zeros((Hp, (x.W + 4) // (4 if packed else 1)),
+                           dtype=dtype)
+    plane = torch.zeros(Hp * Wp + 1, dtype=dtype)[1:].view(Hp, Wp)
+    assert plane.is_contiguous() and plane.data_ptr() % 16
+    return plane
+
+
+@pytest.mark.parametrize("fault", ["odd width", "misaligned", "W + 4 bytes"])
+def test_k9_refuses_a_plane_it_cannot_read_as_words(fault):
+    """K9 reads its byte plane as 16-byte quads: a plane of odd width or
+    of rows of W + 4 bytes, or a contiguous view one byte past a quad, is
+    refused on every device before any launch — no plain fallback on the
+    card."""
+    x = pmv.make_inputs(*SMALL, device="cpu")
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mc_rows.mc_row_pred(_unquadded(x, fault, False), x.sy, x.sx, x.ph,
+                            H=x.H, W=x.W)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "W + 4 bytes"])
+def test_k10_refuses_a_plane_it_cannot_read_as_quads(fault):
+    """K10 reads its word plane as 16-byte quads: rows of W/4 + 1 words,
+    or a contiguous view one word past a quad, are refused on every device
+    before any launch."""
+    x = pmv.make_inputs(*SMALL, device="cpu")
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mc_rows.mc_row_pred_packed(_unquadded(x, fault, True), x.sy, x.sxq,
+                                   x.rb, x.ph, H=x.H, W=x.W)
+    assert dict(_build.LAUNCHES) == before

@@ -1,8 +1,9 @@
 // One 4-pixel word of a packed half-pel prediction, shared by the SWAR
-// kernels K7/K8 (csrc/mc_swar.cu, csrc/mc_recon.cu) and K10
-// (csrc/mc_rows.cu); the 8-pixel row segment of the segment kernels K2-K4,
-// K8 (csrc/mc_recon.cu), K7 (csrc/mc_swar.cu) and K5, K6 (csrc/mc_roll.cu),
-// with their grouping of segments into warps and their residual epilogue.
+// kernels K7/K8 (csrc/mc_swar.cu, csrc/mc_recon.cu); the 8-pixel row
+// segment of the segment kernels K2-K4, K8 (csrc/mc_recon.cu), K7
+// (csrc/mc_swar.cu), K5, K6 (csrc/mc_roll.cu) and K9, K10
+// (csrc/mc_rows.cu), with their grouping of segments into warps and their
+// residual epilogue.
 //
 // A word holds pixels 4x .. 4x+3 of a row, the first at the least
 // significant byte.  Word k of a prediction whose first pixel column is sx

@@ -25,8 +25,12 @@ Both compute MPEG-2's exact half-pel prediction, equal to the script's
 shift, ``profile_mc_variants.py:190``); ``tests/test_torch_mc_rows.py``
 pins that divergence.
 
-A CPU tensor takes the plain version (``*_ref``); a CUDA tensor launches
-the kernel; any other device raises.  The plain K9 gathers bytes
+Both kernels (one template of ``csrc/mc_rows.cu``, a warp per MB) read the
+plane as 16-byte quads: its pointer must be 16-byte aligned and its rows a
+multiple of 16 bytes (``Wp % 16 == 0``, ``Wq % 4 == 0``), as the script's
+padding makes them; other planes are refused on every device.  A CPU
+tensor takes the plain version (``*_ref``); a CUDA tensor launches the
+kernel; any other device raises.  The plain K9 gathers bytes
 (:mod:`.mc`), the plain K10 funnel-shifts int64 words (:mod:`.mc_fused`),
 so the two check each other.
 """
@@ -77,11 +81,13 @@ def mc_row_pred_packed_ref(plane32, sy, sxq, rb, ph, *, H: int, W: int):
 
 def _takes_kernel(name, plane, dtype, width, vectors, H, W) -> bool:
     """Whether the kernel runs (CUDA tensors) rather than the plain version
-    (CPU tensors), after refusing what the kernel does not take: a plane
-    that is not a contiguous 2-D ``dtype`` tensor of more than ``H`` rows
-    and ``width`` columns, a geometry that is not whole MBs, per-MB vectors
-    that are not contiguous (n_mb,) int32 on the plane's device, or any
-    other device."""
+    (CPU tensors), after refusing what the kernel does not take, on every
+    device: a plane that is not a contiguous 2-D ``dtype`` tensor of more
+    than ``H`` rows and ``width`` columns, a plane the kernels cannot read
+    as 16-byte quads (not 16-byte aligned, or rows that are not a multiple
+    of 16 bytes), a geometry that is not whole MBs, per-MB vectors that are
+    not contiguous (n_mb,) int32 on the plane's device, or any other
+    device."""
     if H < 16 or W < 16 or H % 16 or W % 16:
         raise ValueError(f"{name}: H={H}, W={W} is not a whole number of "
                          f"16x16 MBs")
@@ -90,6 +96,10 @@ def _takes_kernel(name, plane, dtype, width, vectors, H, W) -> bool:
         raise ValueError(f"{name}: the plane must be a contiguous 2-D {dtype}"
                          f" tensor of more than {H} x {width}, with the zero "
                          f"padding the +1 taps read; got "
+                         f"{tuple(plane.shape)} {plane.dtype}")
+    if plane.shape[1] * plane.element_size() % 16 or plane.data_ptr() % 16:
+        raise ValueError(f"{name}: the plane must be 16-byte aligned with "
+                         f"rows of a multiple of 16 bytes; got "
                          f"{tuple(plane.shape)} {plane.dtype}")
     n_mb = (H // 16) * (W // 16)
     for x in vectors:

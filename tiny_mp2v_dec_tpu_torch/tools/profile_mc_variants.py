@@ -74,6 +74,42 @@ def make_inputs(H: int = H, W: int = W, seed: int = 0, device="cuda"):
     return x
 
 
+# the starts row_case draws
+ROW_STARTS = ("profiler", "edges", "sx_phases")
+
+
+def row_case(x, starts: str = "profiler", tight: bool = False):
+    """A copy of :func:`make_inputs`' ``x`` with other starts, on which K9
+    and K10 are held to their plain versions: the script's (``profiler``);
+    every MB's window at the bottom edge, the right edge or both (the +1
+    taps in the zero padding) at every phase (``edges``); or every
+    ``sx & 3`` at every phase (``sx_phases``: 16 pairs, or one per MB on
+    fewer MBs).  The MVs follow the starts, so :func:`variant_a` reads the
+    same windows.  With ``tight``, the picture on the least padding the
+    kernels take: (H + 1, W + 16) bytes, the same bytes as (H + 1, W/4 + 4)
+    words."""
+    v = SimpleNamespace(**vars(x))
+    i = torch.arange(x.sy.numel(), device=x.sy.device, dtype=torch.int32)
+    if starts == "edges":
+        v.sy = torch.where(i % 3 != 1, x.H - 16, x.sy)
+        v.sx = torch.where(i % 3 != 0, x.W - 16, x.sx)
+        v.ph = (i // 3) % 4
+    elif starts == "sx_phases":
+        v.sx = torch.clamp(x.sx & ~3, max=x.W - 20) + i % 4
+        v.ph = (i // 4) % 4
+    elif starts != "profiler":
+        raise ValueError(f"row_case: no starts {starts!r}")
+    v.sxq, v.rb = v.sx >> 2, v.sx & 3
+    v.mvx = (2 * (v.sx - x.pos_x) + (v.ph & 1)).to(torch.int16)
+    v.mvy = (2 * (v.sy - x.pos_y) + (v.ph >> 1)).to(torch.int16)
+    if tight:
+        v.plane_pad = torch.zeros((x.H + 1, x.W + 16),
+                                  dtype=torch.uint8, device=x.plane.device)
+        v.plane_pad[:x.H, :x.W] = x.plane
+        v.plane32 = v.plane_pad.view(torch.int32)
+    return v
+
+
 def make_phase_planes(padded):
     """The four half-pel filtered planes of the padded plane: (4, H+1,
     W+1) uint8, phase 0 a, 1 ab, 2 ac, 3 abcd (the taps past the last row

@@ -1,8 +1,8 @@
-"""A/B of the port's kernels (K1–K8) between two checkouts of the port, on
-one card, by ``chip_smoke.py``'s own measurement code.
+"""A/B of the port's kernels (K1–K10) between two checkouts of the port,
+on one card, by ``chip_smoke.py``'s own measurement code.
 
     python3 tools/ab_kernel_times.py PARENT_ROOT [CHANGE_ROOT]
-        [--pairs N] [--out DIR]
+        [--pairs N] [--out DIR] [--only WORD ...]
 
 ``CHANGE_ROOT`` defaults to this checkout.  The two checkouts run in turns,
 each in a process of its own, for ``N`` pairs (default 10), alternating
@@ -10,17 +10,17 @@ which side runs first (P C, C P, P C, ...).  Each process
 
 * builds its checkout's CUDA kernels from their sources and times the
   build (``_build.build(force=True)``, then loading the library);
-* compiles its ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu`` and
-  ``csrc/idct.cu`` with ``-Xptxas -v`` and keeps the registers, stack
-  frame and spilled bytes that ``ptxas`` reports for each kernel
-  instantiation (:func:`ptxas_report`);
+* compiles its ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu``,
+  ``csrc/idct.cu`` and ``csrc/mc_rows.cu`` with ``-Xptxas -v`` and keeps
+  the registers, stack frame and spilled bytes that ``ptxas`` reports for
+  each kernel instantiation (:func:`ptxas_report`);
 * compiles ``csrc/mc_recon.cu``, ``csrc/mc_roll.cu`` and
   ``csrc/mc_swar.cu`` to cubins and keeps a digest of the SASS
   (``cuobjdump -sass``) of each instantiation of the controls
   (:func:`sass_digests`): every form of the segment kernel
-  ``mc_seg_kernel`` (K2, K3, K4, K8), K5's ``mc_roll_luma_kernel`` and
-  K7's one-component ``mc_swar_kernel``; and K1's instructions counted by
-  opcode (:func:`sass_opcodes`);
+  ``mc_seg_kernel`` (K2, K3, K4, K8), K5's ``mc_roll_luma_kernel``, K6's
+  ``mc_roll_uv_kernel`` and K7's one-component ``mc_swar_kernel``; and K1's
+  instructions counted by opcode (:func:`sass_opcodes`);
 * times K1 (``chip_smoke.check_idct``: 131,072 and 196,608 blocks, each
   warm and cold) and, by ``chip_smoke.check_mc``
   (``chip_smoke.mc_inputs``, device time per call by
@@ -35,15 +35,17 @@ which side runs first (P C, C P, P C, ...).  Each process
   of one MB (``chip_smoke.one_mb_times``: the fixed cost of a launch); and
   K7 on one 1080p picture at 4:2:0 and 4:2:2 (``chip_smoke.check_swar_yuv``:
   the picture form's one launch, or in a checkout without it the three
-  one-component launches it replaces, timed as one callable).
+  one-component launches it replaces, timed as one callable); and K9 and
+  K10 on the MC profiler's 1080p inputs (``chip_smoke.check_rows``, each
+  first checked on every case of ``profile_mc_variants.row_case``).
 
 Every run prints one JSON line; the summary gives, for each reading, the
 median of each side, the parent's interquartile range, whether the
 medians lie within it of each other, and the pairs in which the change
 read lower; ``cards``: the card's name and power limit as ``nvidia-smi``
 gave them to each process; and ``control_sass_equal``: whether both sides
-compiled the controls (K2, K3, K4, K8, K5, K7's one-component form) to the
-same machine code.  ``--out`` also keeps each
+compiled the controls (K2, K3, K4, K8, K5, K6, K7's one-component form) to
+the same machine code.  ``--out`` also keeps each
 process's full output there.  Needs one CUDA card and ``nvcc``; imports
 nothing of JAX.
 """
@@ -88,6 +90,8 @@ MC = (("K2 luma", 1088, 1920, 16, 16, False, False, "mxu", 0.5),
 ONE_MB = {"mc_recon_luma": "K2 one MB", "mc_recon_uv": "K3 one MB"}
 # chip_smoke.CHROMA's formats K7's picture form is timed at
 YUV = ("4:2:0", "4:2:2")
+# chip_smoke.check_rows' forms -> their kernels
+ROWS = {"mc_row": "K9", "mc_row_packed": "K10"}
 
 
 def _smoke():
@@ -101,7 +105,7 @@ def _smoke():
 
 
 # the sources whose kernels ptxas_report lists
-PTXAS_SOURCES = ("mc_recon", "mc_roll", "idct")
+PTXAS_SOURCES = ("mc_recon", "mc_roll", "idct", "mc_rows")
 
 
 def ptxas_report(nvcc: str, root: str) -> dict:
@@ -188,26 +192,29 @@ def sass_opcodes(sass: str, kernel: str) -> dict:
 
 # the controls' mangled names: every form of the segment kernel (tile rows,
 # columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8 1 0), K5's
-# warp kernel (bidir) and K7's one-component word kernel (tile rows,
-# columns, bidir)
+# warp kernel (bidir), K6's (tile rows, columns, bidir) and K7's
+# one-component word kernel (tile rows, columns, bidir)
 _CONTROLS = (
     (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)EE",
      "seg {}x{} np={} bidir={} field={} recon={}"),
     (r"mc_roll_luma_kernelILb(\d)EE", "roll luma bidir={}"),
+    (r"mc_roll_uv_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
+     "roll uv {}x{} bidir={}"),
     (r"mc_swar_kernelILi(\d+)ELi(\d+)ELb(\d)EE", "swar {}x{} bidir={}"))
 
 
 def sass_digests(sass: str) -> dict:
     """sha256 of each instantiation of the controls in ``cuobjdump -sass``
     output (:data:`_CONTROLS`: the forms of ``mc_seg_kernel``, K5's
-    ``mc_roll_luma_kernel``, K7's ``mc_swar_kernel``), keyed by its kernel
+    ``mc_roll_luma_kernel``, K6's ``mc_roll_uv_kernel``, K7's
+    ``mc_swar_kernel``), keyed by its kernel
     and its template arguments: the lines of its body up to
     cuobjdump's closing line of dots — each instruction and its encoding —
     without the function's name line, what follows the body (after the
     last function of a listing, the next listing's header), runs of
     blanks (cuobjdump pads columns to the file's longest instruction) or
-    the file-wide numbering of branch labels.  Other kernels (K6's, K7's
-    picture form, the empty kernel) are left out."""
+    the file-wide numbering of branch labels.  Other kernels (K7's picture
+    form, the empty kernel) are left out."""
     out = {}
     for name, body in _functions(sass):
         for pattern, key in _CONTROLS:
@@ -223,8 +230,15 @@ def sass_digests(sass: str) -> dict:
     return out
 
 
-def run_one(root: str) -> dict:
-    """Build and time the kernels of the checkout at ``root``."""
+def run_one(root: str, only=()) -> dict:
+    """Build and time the kernels of the checkout at ``root``; with
+    ``only``, just the readings whose names begin with one of its words
+    (``K1`` is K1's readings, not K10's), and neither the ``ptxas`` report
+    nor the SASS."""
+    def want(*names):
+        return not only or any(n == w or n.startswith(w + " ")
+                               for n in names for w in only)
+
     sys.path.insert(0, root)
     smoke = _smoke()
     import numpy as np
@@ -242,28 +256,36 @@ def run_one(root: str) -> dict:
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True,
-               check=True).stdout.strip(),
-           "ptxas": ptxas_report(_build.nvcc_path(), root),
-           "control_sass": control_sass(_build.nvcc_path(), root),
-           "k1_sass": sass_opcodes(sass_listing(_build.nvcc_path(), root,
-                                                ("idct",)),
-                                   "idct8x8_kernel")}
+               check=True).stdout.strip()}
+    if not only:
+        rec["ptxas"] = ptxas_report(_build.nvcc_path(), root)
+        rec["control_sass"] = control_sass(_build.nvcc_path(), root)
+        rec["k1_sass"] = sass_opcodes(
+            sass_listing(_build.nvcc_path(), root, ("idct",)),
+            "idct8x8_kernel")
     rng = np.random.default_rng(2024)
-    for n, r in smoke.check_idct(torch, np, rng)["blocks"].items():
-        rec[f"K1 idct8x8 {n} warm"] = r["ms"]
-        rec[f"K1 idct8x8 {n} cold"] = r["cold_ms"]
+    if want("K1"):
+        for n, r in smoke.check_idct(torch, np, rng)["blocks"].items():
+            rec[f"K1 idct8x8 {n} warm"] = r["ms"]
+            rec[f"K1 idct8x8 {n} cold"] = r["cold_ms"]
     for name, H, W, th, tw, uv, field, impl, share in MC:
+        if not want(name):
+            continue
         r = smoke.check_mc(torch, np, rng, name, H, W, th, tw, uv=uv,
                            field=field, impl=impl, field_share=share)
         rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
-    for form, r in smoke.one_mb_times(torch, np, rng).items():
-        name = ONE_MB[form]
-        rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
+    if want(*ONE_MB.values()):
+        for form, r in smoke.one_mb_times(torch, np, rng).items():
+            name = ONE_MB[form]
+            rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
     for label, tile, H, W in smoke.CHROMA:
-        if label in YUV:
+        if label in YUV and want(f"K7 picture {label}"):
             r = smoke.check_swar_yuv(torch, np, rng, label, tile, H, W)
             name = f"K7 picture {label}"
             rec[f"{name} bidir"], rec[f"{name} fwd"] = r["ms"], r["fwd_ms"]
+    if want(*ROWS.values()):
+        for name, r in smoke.check_rows(torch).items():
+            rec[f"{ROWS[name]} {name}"] = r["ms"]
     return rec
 
 
@@ -285,8 +307,9 @@ def summary(runs: list, parent: str, change: str) -> dict:
                     "within_parent_iqr": abs(cm - pm) <= q[2] - q[0],
                     "change_wins": sum(b < a for a, b in zip(p, c)),
                     "pairs": min(len(p), len(c))}
-    out["control_sass_equal"] = bool(runs[0]["control_sass"]) and all(
-        x["control_sass"] == runs[0]["control_sass"] for x in runs)
+    if "control_sass" in runs[0]:
+        out["control_sass_equal"] = bool(runs[0]["control_sass"]) and all(
+            x["control_sass"] == runs[0]["control_sass"] for x in runs)
     out["cards"] = sorted({x["card"] for x in runs})
     return out
 
@@ -297,10 +320,14 @@ def main() -> int:
     ap.add_argument("change", nargs="?", default=REPO)
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out", help="directory for each run's full output")
+    ap.add_argument("--only", nargs="+", default=(), metavar="WORD",
+                    help="time only the readings whose names begin with "
+                    "these words (e.g. K9 K10), without the ptxas report "
+                    "and the SASS")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        print(json.dumps(run_one(os.path.abspath(a.parent))))
+        print(json.dumps(run_one(os.path.abspath(a.parent), a.only)))
         return 0
     parent, change = map(os.path.abspath, (a.parent, a.change))
     if a.out:
@@ -310,8 +337,9 @@ def main() -> int:
         order = (parent, change) if i % 2 == 0 else (change, parent)
         for root in order:
             tag = f"{i:02d}_{'parent' if root == parent else 'change'}"
+            only = ["--only", *a.only] if a.only else []
             p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--one", root], capture_output=True,
+                                "--one", root, *only], capture_output=True,
                                text=True)
             if a.out:
                 with open(os.path.join(a.out, tag + ".txt"), "w") as f:
