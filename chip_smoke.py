@@ -41,7 +41,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``swar`` (K1, K8).  Each path must launch its kernels exactly as often
    as :data:`PATHS` says and no MC kernel of another implementation, and
    each YUV sha256 must equal the one recorded from the JAX package (the
-   ``.json`` beside each stream); then warm decode frames/s of each;
+   ``.json`` beside each stream); then warm decode frames/s of each.
+   Then both streams under ``mxu`` at ``gop_chunk=4``
+   (:data:`PIPELINED`): four chunks through the decoder's pipeline (the
+   caller's thread tokenizes, a fill thread prepares, a dispatch thread
+   uploads and launches), once with ``pictures_pool_size=0`` and frames
+   left on the device and once with a pool of one and host output (each
+   chunk's frames copied to pinned host memory as soon as its kernels are
+   queued), each to the same hash with K1 launched once a chunk; their
+   warm frames/s and the overlap figure ``(tokenize_s + fill_s +
+   device_s) / wall`` (above 1: the stages ran at the same time), beside
+   the host's CPU count.  Last, the main path over several chunks
+   (:data:`MULTI_CHUNK`): each stream four times over in one stream
+   (:func:`repeat_stream`) under ``mxu`` at ``gop_chunk=16``, each
+   16-frame group to the fixture's hash, every launch four times the
+   one-chunk decode's, with the host memory the decoder keeps after it
+   (:func:`host_kept_bytes`);
 5. the MC profiler and the kernel gate: the parity run of
    ``tools/profile_mc_variants.py`` (variants b, c = K9 and d = K10 equal
    to a), with the launch counts reset just before and read just after —
@@ -84,6 +99,26 @@ PATHS = {
     ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar_yuv": 16},
     ("interlaced_1080_422_16", "swar"): {"idct8x8": 1, "mc_swar_field": 48},
 }
+# pipelined paths, under mxu at gop_chunk=4: the same launches but K1's,
+# once for each of the four chunks
+PIPELINED = {
+    "bench_1080p_420_16": {
+        "idct8x8": 4, "mc_recon_luma": 16, "mc_recon_uv": 16},
+    "interlaced_1080_422_16": {
+        "idct8x8": 4, "mc_field_luma": 16, "mc_field_uv": 16},
+}
+# (pictures_pool_size, output_host) of each pipelined path's two decodes
+DELIVERY = ((0, False), (1, True))
+# the main path over several chunks: each fixture REPEAT times over in one
+# stream (repeat_stream), under mxu at gop_chunk=16, so every launch REPEAT
+# times that of the fixture's one-chunk decode
+REPEAT = 4
+MULTI_CHUNK = {name: {k: n * REPEAT for k, n in PATHS[name, "mxu"].items()}
+               for name in PIPELINED}
+# the start codes repeat_stream cuts at: the first GOP header, and the
+# sequence end code, which closes a stream (the decoder stops there)
+GROUP_START = b"\x00\x00\x01\xb8"
+SEQUENCE_END = b"\x00\x00\x01\xb7"
 # every MC kernel's counter: the paths' and K7's one-component form, which
 # no path launches
 MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
@@ -635,13 +670,54 @@ def profiler_and_gates(torch, _build):
     return launches
 
 
+def repeat_stream(data: bytes, times: int) -> bytes:
+    """``data``, one sequence (its header, then GOPs, then the sequence end
+    code), ``times`` times over as one sequence: every copy but the first
+    starts at its first GOP header, and every copy but the last loses its
+    end code.  Where each picture carries its own quant matrix extension,
+    as in both fixtures, it decodes to ``data``'s frames ``times`` times
+    over.  A later copy keeps no sequence header because the decoders (the
+    JAX package's, its golden model and the port) decode the picture
+    before a sequence header with that header's state, its downloaded
+    matrices reset (ROADMAP Queue 3)."""
+    gop = data.find(GROUP_START)
+    if not data.endswith(SEQUENCE_END) or gop < 0:
+        raise ValueError("the stream does not end with a sequence end code "
+                         "or has no GOP header")
+    if times == 1:
+        return data
+    end = len(data) - len(SEQUENCE_END)
+    return data[:end] + data[gop:end] * (times - 2) + data[gop:]
+
+
+def host_kept_bytes(dec) -> int:
+    """Host bytes a decoder keeps between decodes: the token arrays it
+    keeps for reuse (``MP2VDecoder._spare_tokens``, where it has them) and
+    its recons' staging blobs (one per blob shape in a decoder that
+    uploads synchronously, up to ``GopRecon.N_SLOTS`` slots in one that
+    pipelines)."""
+    import numpy as np
+    n = sum(a.nbytes for t in getattr(dec, "_spare_tokens", ())
+            for a in vars(t).values() if isinstance(a, np.ndarray))
+    for recon in dec._recons.values():
+        for stage in recon._stage.values():
+            blobs = ([s.blob for s in stage if s is not None]
+                     if isinstance(stage, list) else [stage[0]])
+            n += sum(b.nbytes for b in blobs)
+    return n
+
+
 def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
-                expected):
-    """Decode one fixture under ``MP2V_MC_IMPL=impl`` through the decoder's
-    entry point with the launch counts reset just before and read just
-    after; check the hash, that every kernel of the path launched as often
-    as ``expected`` says and that no MC kernel of another implementation
-    did; then time warm decodes.  Returns (launches, frames/s)."""
+                expected, gop_chunk=16, pool=0, output_host=False,
+                repeat=1):
+    """Decode one fixture (``repeat`` times over in one stream) under
+    ``MP2V_MC_IMPL=impl`` through the decoder's entry point with the
+    launch counts reset just before and read just after; check the hash
+    (of each repeat), that every kernel of the path launched as often as
+    ``expected`` says and that no MC kernel of another implementation
+    did; then time warm decodes.  Returns (launches, frames/s, overlap:
+    the median over the warm decodes of ``(tokenize_s + fill_s +
+    device_s) / wall``)."""
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
         data = f.read()
     with open(os.path.join(DATA, name + ".json")) as f:
@@ -649,10 +725,17 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     if hashlib.sha256(data).hexdigest() != want["stream_sha256"]:
         fail(f"{name}: the stream fixture does not match its recorded "
              f"sha256")
+    data = repeat_stream(data, repeat)
     os.environ["MP2V_MC_IMPL"] = impl
-    dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
-                                    pictures_pool_size=0, device="cuda"))
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=gop_chunk,
+                                    output_host=output_host,
+                                    pictures_pool_size=pool, device="cuda"))
     label = f"{name} [{impl}]"
+    if gop_chunk != 16:
+        label += (f" gop_chunk={gop_chunk} pool={pool} "
+                  f"output_host={output_host}")
+    if repeat > 1:
+        label += f" x{repeat}"
     _build.LAUNCHES.clear()
     frames = dec.decode(data)
     torch.cuda.synchronize()
@@ -660,11 +743,14 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     digest, n_bytes = yuv_sha256(frames)
     print(f"decode {label}: {len(frames)} frames, {n_bytes} YUV bytes, "
           f"sha256 {digest}; launches {launches}")
-    if len(frames) != want["frames"] or n_bytes != want["yuv_bytes"]:
+    per = want["frames"]
+    if len(frames) != per * repeat or n_bytes != want["yuv_bytes"] * repeat:
         fail(f"{label}: decoded {len(frames)} frames / {n_bytes} bytes, "
-             f"expected {want['frames']} / {want['yuv_bytes']}")
-    if digest != want["yuv_sha256"]:
-        fail(f"{label}: YUV sha256 {digest} != JAX reference "
+             f"expected {per * repeat} / {want['yuv_bytes'] * repeat}")
+    groups = ([yuv_sha256(frames[i * per:(i + 1) * per])[0]
+               for i in range(repeat)] if repeat > 1 else [digest])
+    if any(g != want["yuv_sha256"] for g in groups):
+        fail(f"{label}: YUV sha256 {groups} != JAX reference "
              f"{want['yuv_sha256']}")
     for k, n in expected.items():
         if launches.get(k, 0) != n:
@@ -676,18 +762,24 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
         fail(f"{label}: MC kernels of another implementation launched: "
              f"{stray}")
     runs = DECODE_RUNS[impl]
-    walls = []
+    walls, overlaps = [], []
     for _ in range(runs):
         dec.reset()
         t0 = time.perf_counter()
         frames = dec.decode(data)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        st = dec.stats
+        overlaps.append((st["tokenize_s"] + st["fill_s"] + st["device_s"])
+                        / walls[-1])
     wall = statistics.median(walls)
     fps = len(frames) / wall
+    overlap = statistics.median(overlaps)
     print(f"decode {label} warm: median {wall:.4f} s over {runs} "
-          f"runs = {fps:.2f} frames/s (best {min(walls):.4f} s)")
-    return launches, fps
+          f"runs = {fps:.2f} frames/s (best {min(walls):.4f} s); overlap "
+          f"(tokenize + fill + device) / wall {overlap:.3f}; host memory "
+          f"kept after the decode {host_kept_bytes(dec) / 2**20:.1f} MiB")
+    return launches, fps, overlap
 
 
 def yuv_sha256(frames) -> tuple:
@@ -773,9 +865,19 @@ def main() -> int:
 
     # 4) end to end through the decoder's entry point, one path at a time
     launches = {}
-    for (name, impl), expected in PATHS.items():
-        counts, _ = decode_path(torch, _build, MP2VDecoder, DecoderConfig,
-                                name, impl, expected)
+    runs = [(name, impl, expected, {})
+            for (name, impl), expected in PATHS.items()]
+    runs += [(name, "mxu", expected,
+              {"gop_chunk": 4, "pool": pool, "output_host": host})
+             for name, expected in PIPELINED.items()
+             for pool, host in DELIVERY]
+    runs += [(name, "mxu", expected, {"repeat": REPEAT})
+             for name, expected in MULTI_CHUNK.items()]
+    print(f"host: {os.cpu_count()} CPUs; {card}")
+    for name, impl, expected, opts in runs:
+        counts, _, _ = decode_path(torch, _build, MP2VDecoder,
+                                   DecoderConfig, name, impl, expected,
+                                   **opts)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 

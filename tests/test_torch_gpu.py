@@ -8,8 +8,9 @@ K6, K7 and K8 at the chroma tile of every format; K1 from one block to the
 interlaced fixture's 196,608, over all of int16;
 K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
 at every phase, on the tightest plane and at 1088x1904), both 1080-line
-fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, the MC
-profiler's parity run and the kernel gate.
+fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, through
+the chunk pipeline at ``gop_chunk=4`` and four times over at
+``gop_chunk=16``, the MC profiler's parity run and the kernel gate.
 
 These tests skip where torch finds no CUDA device.  The file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine that has
@@ -18,6 +19,7 @@ no JAX; there, skip ``tests/conftest.py`` (which configures JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 import hashlib
+import importlib.util
 import json
 import os
 
@@ -329,6 +331,79 @@ def test_decode_fixture_through_kernels(name, kernels):
     assert h.hexdigest() == want["yuv_sha256"]
     for k in kernels:
         assert _build.LAUNCHES[k] > before.get(k, 0), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool,output_host", [(0, False), (1, True)])
+@pytest.mark.parametrize("name,kernels", [
+    ("bench_1080p_420_16", ("mc_recon_luma", "mc_recon_uv")),
+    ("interlaced_1080_422_16", ("mc_field_luma", "mc_field_uv")),
+])
+def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
+    """``gop_chunk=4``: the fixture's four chunks through the fill and
+    dispatch threads, from pinned staging slots, to the same JAX hash,
+    with K1 once a chunk and each MC kernel once a picture; with host
+    output, each chunk's frames read from the pinned copy started on the
+    dispatch thread."""
+    _require_cuda()
+    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
+        data = f.read()
+    with open(os.path.join(DATA, name + ".json")) as f:
+        want = json.load(f)
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=4, output_host=output_host,
+                                    pictures_pool_size=pool, device="cuda"))
+    before = dict(_build.LAUNCHES)
+    frames = dec.decode(data)
+    h = hashlib.sha256()
+    for f in frames:
+        h.update(f.tobytes())
+    assert h.hexdigest() == want["yuv_sha256"]
+    counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
+              for k in ("idct8x8",) + kernels}
+    assert counts == {"idct8x8": 4, **{k: 16 for k in kernels}}
+    recon, = dec._recons.values()
+    slots = [s for shape in recon._stage.values() for s in shape if s]
+    assert 0 < len(slots) <= 3 * len(recon._stage)
+    assert all(s.pinned.is_pinned() for s in slots)
+    assert recon._seq_prep == recon._seq_disp == 4
+    if output_host:
+        assert all(f._shared._pinned.is_pinned() for f in frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernels", [
+    ("bench_1080p_420_16", ("mc_recon_luma", "mc_recon_uv")),
+    ("interlaced_1080_422_16", ("mc_field_luma", "mc_field_uv")),
+])
+def test_decode_fixture_over_four_chunks(name, kernels):
+    """The main path at ``gop_chunk=16`` over several chunks: the fixture
+    four times over in one stream (``chip_smoke.repeat_stream``) through
+    the pipeline, each 16-frame group to the fixture's JAX hash, every
+    launch four times the one-chunk decode's."""
+    _require_cuda()
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(os.path.dirname(os.path.dirname(DATA)),
+                                    "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
+        data = smoke.repeat_stream(f.read(), 4)
+    with open(os.path.join(DATA, name + ".json")) as f:
+        want = json.load(f)
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
+                                    pictures_pool_size=0, device="cuda"))
+    before = dict(_build.LAUNCHES)
+    frames = dec.decode(data)
+    assert len(frames) == 64
+    for i in range(4):
+        h = hashlib.sha256()
+        for f in frames[16 * i:16 * (i + 1)]:
+            h.update(f.tobytes())
+        assert h.hexdigest() == want["yuv_sha256"], f"copy {i}"
+    counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
+              for k in ("idct8x8",) + kernels}
+    assert counts == {"idct8x8": 4, **{k: 64 for k in kernels}}
+    assert len(dec._spare_tokens) <= 32
 
 
 @pytest.mark.cuda

@@ -3,10 +3,20 @@
 Inputs are made from a seed with numpy and handed to both packages; every
 comparison is exact, because all of the decoder's arithmetic is integer.
 """
+import os
+import sys
+import threading
+import traceback
+
 import numpy as np
+import pytest
 
 from m2v_encoder import encode_stream, random_picture
 from tiny_mp2v_dec_tpu import headers as H
+
+# seconds a decode through the port's threads may take before the test
+# counts it as a deadlock
+WATCHDOG_S = 120.0
 
 # decode-order picture types and temporal references of an IPBPB stream
 IPBPB = ((H.PCT_I, 0), (H.PCT_P, 2), (H.PCT_B, 1), (H.PCT_P, 4),
@@ -82,3 +92,39 @@ def device_recon_parity(mc_impl, cf, width, height, field, seed,
     for comp, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                       err_msg=f"component {comp}")
+
+
+def watchdog(fn, timeout=WATCHDOG_S):
+    """``fn()`` on a daemon thread: its result, or its exception raised
+    here (the discipline of test_pipeline_stress._watchdog).  Past
+    ``timeout`` seconds the work counts as a deadlock and the test fails,
+    with every thread's stack in the message.  The decoder's stuck worker
+    threads would then keep the process from ever exiting (at exit
+    ``concurrent.futures`` joins its threads), so the process is also set
+    to end with status 1 as soon as it starts to exit, before that join:
+    a deadlock fails the test and does not hang the suite."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: B036 - re-raised below
+            out["error"] = e
+
+    th = threading.Thread(target=run, name="watchdog", daemon=True)
+    th.start()
+    th.join(timeout)
+    if th.is_alive():
+        frames = sys._current_frames()
+        stacks = "".join(
+            f"\n--- thread {t.name}\n"
+            + "".join(traceback.format_stack(frames[t.ident]))
+            for t in threading.enumerate() if t.ident in frames)
+        # run before concurrent.futures' own exit hook, which would wait
+        # for the stuck workers (these hooks run newest first)
+        threading._register_atexit(os._exit, 1)
+        pytest.fail(f"deadlock: the work exceeded the {timeout:.0f} s "
+                    f"watchdog; the threads:{stacks}")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]

@@ -7,11 +7,14 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
 1. :meth:`GopRecon.prepare` (host, numpy) packs the chunk's nonzero
    coefficients as (column, value) pairs, per-row nonzero counts, block
    positions, per-picture row counts, step flags and per-MB metadata into
-   one uint8 blob, byte-identical to the JAX package's;
-2. :meth:`GopRecon.dispatch` uploads the blob and runs
-   :meth:`GopRecon._decode_blob` — the pairs become coefficient rows,
-   kernel K1 transforms every coded block of the chunk in one launch, and
-   the residual blocks land in each picture's dense block grid;
+   one uint8 blob, byte-identical to the JAX package's, written into one
+   of :attr:`GopRecon.N_SLOTS` staging slots per blob shape (pinned host
+   memory on ``cuda``);
+2. :meth:`GopRecon.dispatch` uploads the blob without blocking the host
+   and runs :meth:`GopRecon._decode_blob` — the pairs become coefficient
+   rows, kernel K1 transforms every coded block of the chunk in one
+   launch, and the residual blocks land in each picture's dense block
+   grid;
 3. :meth:`GopRecon._gop` loops over the pictures in Python: per picture
    the residual is laid out as planes and kernels K2 (luma) and K3 (U+V)
    predict, add and saturate — or, in a chunk with field-predicted MBs
@@ -29,10 +32,17 @@ the kernels against; the decoder never passes them.
 
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
+
+``prepare`` and ``dispatch`` may run on two threads, as the decoder's fill
+and dispatch threads run them (``runtime/decoder.py``): a condition
+variable keeps at most ``N_SLOTS - 1`` chunks prepared and not yet
+dispatched, and a slot is rewritten only once the CUDA event recorded after
+its upload has completed.
 """
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -349,9 +359,20 @@ class GopRecon:
         # within-picture dense-grid index fits uint16 for every geometry up
         # to ~2.7K-wide video; 0xFFFF is the padding sentinel
         self._scat_u16 = geom.n_mb * geom.blocks_per_mb < 0xFFFF
-        self._stage = {}       # keyed by (pair cap, row cap)
+        # (pair cap, row cap) -> N_SLOTS staging slots, made on first use
+        self._stage = {}
+        self._stage_idx = 0
         self._packers = None
         self._nnz_scratch = None
+        # prepare() may run on a fill thread while a dispatch thread
+        # uploads earlier chunks: the lock serializes prepare calls (the
+        # scratch, the packers, the slot index); the condition bounds the
+        # chunks prepared and not yet dispatched, so that a slot is never
+        # refilled before its blob was uploaded
+        self._call_lock = threading.Lock()
+        self._cv = threading.Condition()
+        self._seq_prep = 0
+        self._seq_disp = 0
 
     def _layout(self, cap_pairs: int, cap_k: int):
         """Byte offsets of the seven sections inside the blob (each 4-byte
@@ -462,19 +483,34 @@ class GopRecon:
                 r0, r1 = r1, out
         return r0, r1, packs
 
-    def _staging(self, cap_pairs, cap_k):
-        """Persistent host staging blob + typed section views.  Upload is
-        synchronous, so one slot per shape is never rewritten while read."""
-        key = (cap_pairs, cap_k)
-        if key not in self._stage:
-            g = self.geom
-            o0, o1, o2, o3, o4, o5, o6, total = self._layout(cap_pairs,
-                                                             cap_k)
-            sdt, sb = (np.uint16, 2) if self._scat_u16 else (np.int32, 4)
-            blob = np.zeros(total, np.uint8)
-            self._stage[key] = (
-                blob,
-                blob[o0:o0 + cap_pairs],
+    # staging slots per (cap_pairs, cap_k), taken in turn: one being
+    # uploaded, one prepared and waiting, one being filled
+    N_SLOTS = 3
+
+    def _staging(self, cap_pairs, cap_k, index) -> "_Slot":
+        """Staging slot ``index`` of a blob shape, made on first use:
+        pinned host memory on ``cuda`` (so that the upload can run without
+        blocking the host), plain numpy on the CPU, where torch cannot
+        pin."""
+        slots = self._stage.setdefault((cap_pairs, cap_k),
+                                       [None] * self.N_SLOTS)
+        if slots[index] is None:
+            total = self._layout(cap_pairs, cap_k)[-1]
+            if self.device.type == "cuda":
+                pinned = torch.zeros(total, dtype=torch.uint8,
+                                     pin_memory=True)
+                blob = pinned.numpy()
+            else:
+                pinned, blob = None, np.zeros(total, np.uint8)
+            slots[index] = _Slot(blob, pinned)
+        return slots[index]
+
+    def _views(self, blob, cap_pairs, cap_k):
+        """The typed sections of a staging blob (see :meth:`_layout`)."""
+        g = self.geom
+        o0, o1, o2, o3, o4, o5, o6, _ = self._layout(cap_pairs, cap_k)
+        sdt, sb = (np.uint16, 2) if self._scat_u16 else (np.int32, 4)
+        return (blob[o0:o0 + cap_pairs],
                 blob[o1:o1 + cap_pairs * 2].view(np.int16),
                 blob[o2:o2 + cap_k],
                 blob[o3:o3 + cap_k * sb].view(sdt),
@@ -482,14 +518,29 @@ class GopRecon:
                 blob[o5:o5 + self.chunk],
                 blob[o6:o6 + self.chunk * g.n_mb * self._cols * 2].view(
                     np.int16).reshape(self.chunk, g.n_mb, self._cols))
-        return self._stage[key]
+
+    def _slot_of(self, staged) -> "_Slot":
+        (cap_pairs, cap_k), blob, _ = staged
+        return next(s for s in self._stage[cap_pairs, cap_k]
+                    if s is not None and s.blob is blob)
 
     def prepare(self, tokens_list, pct_list):
         """Stage 1, host-only: pack nonzero (column, value) pairs + per-row
-        counts + metadata into a staging blob.  Pairs are globally sorted:
+        counts + metadata into a staging slot.  Pairs are globally sorted:
         sparse rows are numbered in claim order per picture, pictures in
-        chunk order, each row walked column-major.  Returns an opaque staged
-        tuple for :meth:`dispatch`."""
+        chunk order, each row walked column-major.  Returns the staged
+        tuple ``((cap_pairs, cap_k), blob, t)`` for :meth:`dispatch`.
+
+        Safe to call from a fill thread while another thread dispatches
+        earlier chunks: calls are serialized by a lock, wait while
+        ``N_SLOTS - 1`` chunks are prepared and not dispatched, and
+        rewrite a slot only after the event recorded after its last upload.
+        A caller that uploads the blob itself releases the slot with
+        :meth:`mark_dispatched`."""
+        with self._call_lock:
+            return self._prepare_impl(tokens_list, pct_list)
+
+    def _prepare_impl(self, tokens_list, pct_list):
         t = len(tokens_list)
         if not 0 < t <= self.chunk:
             raise ValueError(f"{t} pictures for a chunk of {self.chunk}")
@@ -497,12 +548,9 @@ class GopRecon:
         if not fs and any(tok.field_pred.any() for tok in tokens_list):
             raise ValueError("field-predicted MBs need a GopRecon with "
                              "field_support=True")
-        g = self.geom
-        n_rows = g.n_mb * g.blocks_per_mb
-
         if self._packers is None:
             self._packers = pair_packers()
-        count_pairs, pack_pairs_fn = self._packers
+        count_pairs = self._packers[0]
         total_k = sum(tok.n_coded_blocks for tok in tokens_list)
         cap_k = _ladder(total_k + 1)
         if self._nnz_scratch is None or len(self._nnz_scratch) < cap_k:
@@ -522,8 +570,37 @@ class GopRecon:
                                         nnz[off:off + k])
             off += k
         cap_pairs = _ladder(total_nz + 1, lo=4096)
-        blob, pp, pv, pn, sp, pk, fl, sm = self._staging(cap_pairs, cap_k)
-        pn[:off] = nnz[:off]
+        with self._cv:
+            while self._seq_prep - self._seq_disp >= self.N_SLOTS - 1:
+                self._cv.wait()
+            self._seq_prep += 1
+        try:
+            slot = self._staging(cap_pairs, cap_k, self._stage_idx)
+            self._stage_idx = (self._stage_idx + 1) % self.N_SLOTS
+            if slot.guard is not None:
+                slot.guard.synchronize()
+                slot.guard = None
+            self._fill(slot.blob, tokens_list, pct_list, cap_pairs, cap_k,
+                       nnz[:off], total_nz)
+        except BaseException:
+            # nothing will dispatch this chunk: give its place back
+            with self._cv:
+                self._seq_prep -= 1
+                self._cv.notify_all()
+            raise
+        return ((cap_pairs, cap_k), slot.blob, t)
+
+    def _fill(self, blob, tokens_list, pct_list, cap_pairs, cap_k, nnz,
+              total_nz):
+        """Write one chunk into a staging blob (the layout of
+        :meth:`_layout`); ``nnz``: the nonzeros of every coded row."""
+        g = self.geom
+        n_rows = g.n_mb * g.blocks_per_mb
+        fs = self.inner.field_support
+        t = len(tokens_list)
+        pp, pv, pn, sp, pk, fl, sm = self._views(blob, cap_pairs, cap_k)
+        pack_pairs_fn = self._packers[1]
+        pn[:len(nnz)] = nnz
         p = 0
         off = 0
         for i, tok in enumerate(tokens_list):
@@ -549,14 +626,43 @@ class GopRecon:
         is_b[:t] = [pc == 3 for pc in pct_list]
         is_b[t:] = True  # padding steps must not touch the reference list
         fl[:] = is_b.astype(np.uint8) | ((~is_b).astype(np.uint8) << 1)
-        return ((cap_pairs, cap_k), blob, t)
+
+    def upload(self, staged):
+        """The staged blob on the device, and the slot's guard: on ``cuda``
+        a copy from the pinned slot that does not block the host, on the
+        current stream, with a CUDA event recorded after it (the guard);
+        on the CPU a copy, so that no tensor aliases the slot (no guard).
+        The slot stays taken until :meth:`mark_dispatched`."""
+        slot = self._slot_of(staged)
+        if slot.pinned is None:
+            return torch.from_numpy(slot.blob).to(self.device,
+                                                  copy=True), None
+        up = slot.pinned.to(self.device, non_blocking=True)
+        guard = torch.cuda.Event()
+        guard.record()
+        return up, guard
+
+    def mark_dispatched(self, staged, guard) -> None:
+        """Release a staged slot once its blob is uploaded (the JAX
+        package's ``GopRecon.mark_dispatched``): ``guard``, the event
+        recorded after the upload (``None`` when the upload has completed),
+        is waited on before the slot is rewritten, and one more chunk may
+        be prepared.  :meth:`dispatch` calls it; so must any caller that
+        prepares and uploads by itself, or its third ``prepare`` waits
+        forever."""
+        self._slot_of(staged).guard = guard
+        with self._cv:
+            self._seq_disp += 1
+            self._cv.notify_all()
 
     def dispatch(self, staged, ref0=None, ref1=None, bidir: bool = True):
-        """Stage 2: upload the staged blob and reconstruct the chunk.  Must
-        be called in chunk order (the reference planes carry over); returns
-        (ref0, ref1, packed (t, frame_bytes) uint8).  ``bidir=False``
-        selects the forward-only kernels for every picture — only valid
-        when no picture in the chunk is B-coded."""
+        """Stage 2: upload the staged blob (:meth:`upload`), release its
+        slot and reconstruct the chunk.  Must be called in chunk order (the
+        reference planes carry over); returns (ref0, ref1, packed
+        (t, frame_bytes) uint8).  ``bidir=False`` selects the forward-only
+        kernels for every picture — only valid when no picture in the chunk
+        is B-coded.  The same staged chunk may be dispatched again while
+        no later ``prepare`` has taken its slot."""
         (cap_pairs, cap_k), blob, t = staged
         o5 = self._layout(cap_pairs, cap_k)[5]
         step_flags = blob[o5:o5 + t].copy()
@@ -564,8 +670,25 @@ class GopRecon:
             ref0 = self.inner.zero_planes()
         if ref1 is None:
             ref1 = self.inner.zero_planes()
-        # synchronous copy: the staging slot is free again on return (on
-        # the CPU, copy=True keeps the tensors off the staging memory)
-        up = torch.from_numpy(blob).to(self.device, copy=True)
+        guard = None
+        try:
+            up, guard = self.upload(staged)
+        finally:
+            # released even when the upload failed: a fill thread waiting
+            # in prepare() would otherwise wait forever
+            self.mark_dispatched(staged, guard)
         return self._gop(up, tuple(ref0), tuple(ref1), cap_pairs=cap_pairs,
                          cap_k=cap_k, step_flags=step_flags, bidir=bidir)
+
+
+class _Slot:
+    """One staging buffer of :class:`GopRecon`: the blob (a numpy view of
+    ``pinned`` on ``cuda``), and ``guard``, the CUDA event recorded after
+    its last upload, or ``None`` when it may be rewritten at once."""
+
+    __slots__ = ("blob", "pinned", "guard")
+
+    def __init__(self, blob: np.ndarray, pinned):
+        self.blob = blob
+        self.pinned = pinned
+        self.guard = None

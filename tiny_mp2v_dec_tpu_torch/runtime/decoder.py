@@ -9,12 +9,21 @@ the native tokenizer, and reconstructs pictures on the device through
 picture at a time (``gop_chunk=0``).  Reference planes stay on the device
 between pictures; display reordering matches decoder.cpp:346-379.
 
-Everything runs on the calling thread: prepare and dispatch of a chunk are
-synchronous, and the kernels run asynchronously on the current CUDA stream.
+With ``gop_chunk > 0`` a chunk runs through three threads, as in the JAX
+package's ``_flush_chunk``: the caller's thread parses and tokenizes chunk
+N+2, a fill thread packs chunk N+1 into a staging slot
+(:meth:`GopRecon.prepare`), and a dispatch thread uploads chunk N, launches
+its kernels on the device's default stream, owns the reference list and
+routes and delivers its frames (the renderer runs there).  At most two
+chunks are in flight; a worker's exception is raised from ``decode`` or
+``flush``.  The latency path (``gop_chunk=0``) runs every step on the
+caller's thread.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -80,14 +89,39 @@ class DecoderConfig:
                                       "the JAX package's Pallas kernels")
 
 
+class ChunkHost:
+    """The host copy of one chunk's ``(t, frame_bytes)`` uint8 tensor,
+    shared by the chunk's frames: one transfer a chunk.  With ``copied``
+    (host output on ``cuda``), the copy into the pinned tensor ``pinned``
+    was started when the chunk's kernels were queued, and reading waits on
+    that event; without, the first read pulls the tensor with a blocking
+    copy (the counterpart of the JAX package's ``copy_to_host_async`` and
+    ``_fetch_concurrent``)."""
+
+    def __init__(self, packed: torch.Tensor, pinned=None, copied=None):
+        self._packed = packed
+        self._pinned = pinned
+        self._copied = copied
+        self._array = None
+
+    def array(self) -> np.ndarray:
+        if self._array is None:
+            if self._copied is not None:
+                self._copied.synchronize()
+                self._array = self._pinned.numpy()
+            else:
+                self._array = self._packed.cpu().numpy()
+        return self._array
+
+
 class LazyFrame:
     """A decoded frame: row ``index`` of a chunk's ``(t, frame_bytes)``
-    uint8 tensor, pulled to the host on first plane access (one transfer
-    shared by the frames of a chunk)."""
+    uint8 tensor, read on the host on first plane access through the
+    chunk's :class:`ChunkHost`."""
 
     def __init__(self, packed: torch.Tensor, index: int,
                  geom: PictureGeometry, temporal_reference: int,
-                 picture_coding_type: int, shared: list, event=None):
+                 picture_coding_type: int, shared: ChunkHost, event=None):
         self._packed = packed
         self._index = index
         self._geom = geom
@@ -102,9 +136,7 @@ class LazyFrame:
 
     def _flat(self) -> np.ndarray:
         if self._host is None:
-            if self._shared[0] is None:
-                self._shared[0] = self._packed.cpu().numpy()
-            self._host = self._shared[0][self._index]
+            self._host = self._shared.array()[self._index]
         return self._host
 
     @property
@@ -145,16 +177,40 @@ class MP2VDecoder:
                  renderer: Optional[Callable[[LazyFrame], None]] = None):
         self.config = config if config is not None else DecoderConfig()
         self.device = torch.device(self.config.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"DecoderConfig.device={self.config.device!r}"
-                               f" but torch finds no CUDA device")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"DecoderConfig.device={self.config.device!r} but "
+                    f"torch finds no CUDA device")
+            if self.device.index is None:
+                # the worker threads are set to this device (_worker_pool)
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         self.renderer = renderer
         self.tokenize_picture = get_tokenizer(self.config.num_threads,
                                               self.config.on_error)
         self._recons = {}
+        # the fill and dispatch threads, made on the first chunk; they
+        # live across reset()
+        self._fill_pool = self._disp_pool = None
+        self._chunk_jobs = []
+        # tokens whose chunk is prepared, for the next pictures to reuse
+        # (the fill thread appends, this thread pops): allocating each
+        # picture's 6-8 MB of 1080-line token arrays afresh while other
+        # chunks' are freed slows the tokenizer, whose threads fault the
+        # new pages in (PERF.md).  While this thread tokenizes a chunk, the
+        # fill thread hands back at most the two chunks before it, so two
+        # chunks' worth are kept (older sets are dropped); they outlive
+        # reset(), for the next stream
+        self._spare_tokens = deque(
+            maxlen=2 * max(self.config.gop_chunk, 1))
         self.reset()
 
     def reset(self) -> None:
+        # the jobs of an abandoned stream run to their end first (its
+        # decode() has raised already); their outcome is dropped with it
+        wait(self._chunk_jobs)
+        self._chunk_jobs = []
         self.seq: Optional[H.SequenceHeader] = None
         self.sext = H.SequenceExtension()
         self.sscal = None
@@ -272,6 +328,7 @@ class MP2VDecoder:
 
     def flush(self) -> None:
         self._flush_chunk()
+        self._join_chunks()
         if self._reorder_slot is not None:
             self._emit(self._reorder_slot)
             self._reorder_slot = None
@@ -293,45 +350,99 @@ class MP2VDecoder:
         else:
             self._emit(pending)
 
-    def _run_chunk(self, batch) -> None:
-        """Prepare, upload and reconstruct one chunk of ``batch`` =
-        [(tokens, geom, header), ...], then route its frames.  A chunk
+    def _recon_of(self, batch) -> GopRecon:
+        """The recon of ``batch`` = [(tokens, geom, header), ...].  A chunk
         with any field-predicted MB takes the field recon (K4, or K8 under
         ``MP2V_MC_IMPL=swar``), as the JAX package's ``_flush_chunk``
         chooses; the latency path decides per picture."""
-        geom = batch[0][1]
-        pcts = [ph.picture_coding_type for _, _, ph in batch]
-        size = self.config.gop_chunk or 1
         field = any(bool(t.field_pred.any()) for t, _, _ in batch)
-        recon = self._gop_recon_for(geom, field, size)
+        return self._gop_recon_for(batch[0][1], field,
+                                   self.config.gop_chunk or 1)
+
+    def _fill_job(self, recon: GopRecon, batch):
+        """Fill-thread body: pack the chunk into a staging slot, then hand
+        its tokens back for reuse (nothing reads them after ``prepare``)."""
         t0 = time.perf_counter()
-        staged = recon.prepare([b[0] for b in batch], pcts)
-        t1 = time.perf_counter()
+        staged = recon.prepare([b[0] for b in batch],
+                               [ph.picture_coding_type for _, _, ph in batch])
+        self._spare_tokens.extend(t for t, _, _ in batch)
+        self.stats["fill_s"] += time.perf_counter() - t0
+        return staged
+
+    def _disp_job(self, recon: GopRecon, fill_f, batch) -> None:
+        """Dispatch-thread body: one executor thread, so chunks dispatch in
+        order; it alone touches the reference list while chunks are in
+        flight."""
+        self._dispatch_chunk(recon, fill_f.result(), batch)
+
+    def _dispatch_chunk(self, recon: GopRecon, staged, batch) -> None:
+        """Upload and reconstruct one prepared chunk, then route its
+        frames.  With host output on ``cuda``, the chunk's frames start
+        their copy to pinned host memory as soon as its kernels are
+        queued."""
+        geom = batch[0][1]
+        t0 = time.perf_counter()
         # B-free chunks run the forward-only kernels
-        r0, r1, packs = recon.dispatch(staged, self._refs[0], self._refs[1],
-                                       bidir=H.PCT_B in pcts)
+        r0, r1, packs = recon.dispatch(
+            staged, self._refs[0], self._refs[1],
+            bidir=any(ph.picture_coding_type == H.PCT_B
+                      for _, _, ph in batch))
         self._refs = [r0, r1]
-        event = None
+        event, host = None, ChunkHost(packs)
         if packs.is_cuda:
             event = torch.cuda.Event()
             event.record()
-        self.stats["fill_s"] += t1 - t0
-        self.stats["device_s"] += time.perf_counter() - t1
-        shared: list = [None]
+            if self.config.output_host:
+                # the caching host allocator reuses this block only after
+                # the copy recorded on it has completed
+                pinned = torch.empty(packs.shape, dtype=packs.dtype,
+                                     pin_memory=True)
+                pinned.copy_(packs, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+                host = ChunkHost(packs, pinned, copied)
+        self.stats["device_s"] += time.perf_counter() - t0
         self._routing_event = event
         for i, (_, _, ph) in enumerate(batch):
             self._route_frame(
                 LazyFrame(packs, i, geom, ph.temporal_reference,
-                          ph.picture_coding_type, shared, event),
+                          ph.picture_coding_type, host, event),
                 ph.picture_coding_type)
         self._routing_event = None
         # deliver everything but the newest frame
         self._drain(keep_last=True)
 
+    def _worker_pool(self, name: str) -> ThreadPoolExecutor:
+        """One worker thread, set to the decoder's CUDA device: the kernels
+        launch on their thread's current device, which a new thread does
+        not inherit from the caller."""
+        cuda = self.device.type == "cuda"
+        return ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=name,
+            initializer=torch.cuda.set_device if cuda else None,
+            initargs=(self.device,) if cuda else ())
+
     def _flush_chunk(self) -> None:
-        if self._chunk:
-            batch, self._chunk = self._chunk, []
-            self._run_chunk(batch)
+        """Hand the collected chunk to the pipeline: the fill thread packs
+        it while the dispatch thread uploads and runs the chunk before, and
+        this thread goes on to tokenize the next."""
+        if not self._chunk:
+            return
+        batch, self._chunk = self._chunk, []
+        if self._fill_pool is None:
+            self._fill_pool = self._worker_pool("mp2v-fill")
+            self._disp_pool = self._worker_pool("mp2v-dispatch")
+        recon = self._recon_of(batch)
+        fill_f = self._fill_pool.submit(self._fill_job, recon, batch)
+        self._chunk_jobs.append(
+            self._disp_pool.submit(self._disp_job, recon, fill_f, batch))
+        # at most 2 chunks in flight; a worker's exception surfaces here
+        while len(self._chunk_jobs) > 2:
+            self._chunk_jobs.pop(0).result()
+
+    def _join_chunks(self) -> None:
+        while self._chunk_jobs:
+            self._chunk_jobs.pop(0).result()
 
     # ------------------------------------------------------------------
     def _picture_tokens(self, data: bytes, cur):
@@ -362,8 +473,14 @@ class MP2VDecoder:
             vertical_size=geom.height,
             quant_matrices=H.build_quant_matrices(self.seq, self.qmext),
         )
+        out = None
+        while self._spare_tokens and out is None:
+            out = self._spare_tokens.pop()
+            if out.geom != geom:
+                out = None
         t0 = time.perf_counter()
-        tokens = self.tokenize_picture(data, cur["slices"], params, geom)
+        tokens = self.tokenize_picture(data, cur["slices"], params, geom,
+                                       out=out)
         self.stats["pictures"] += 1
         self.stats["bad_slices"] += tokens.bad_slices
         self.stats["tokenize_s"] += time.perf_counter() - t0
@@ -378,5 +495,8 @@ class MP2VDecoder:
             if len(self._chunk) >= self.config.gop_chunk:
                 self._flush_chunk()
             return
-        # latency path: one picture per chunk (GopRecon with chunk=1)
-        self._run_chunk([(tokens, geom, ph)])
+        # latency path: one picture per chunk (GopRecon with chunk=1), on
+        # this thread
+        batch = [(tokens, geom, ph)]
+        recon = self._recon_of(batch)
+        self._dispatch_chunk(recon, self._fill_job(recon, batch), batch)

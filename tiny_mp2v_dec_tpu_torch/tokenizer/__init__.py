@@ -1,8 +1,9 @@
 """Tokenizer front-end: the native C++ tokenizer only.
 
 ``get_tokenizer(num_threads)`` returns a callable
-``(data, slices, params, geom) -> PictureTokens`` where ``slices`` is a list
-of ``(bit_pos_after_start_code, start_code)`` pairs.  There is no Python
+``(data, slices, params, geom, out=None) -> PictureTokens`` where ``slices``
+is a list of ``(bit_pos_after_start_code, start_code)`` pairs and ``out``
+optional tokens of the same geometry whose arrays are reused.  There is no Python
 fallback: it would make a 1080p decode many times slower without saying so,
 so a library that cannot be built or loaded raises instead.
 """

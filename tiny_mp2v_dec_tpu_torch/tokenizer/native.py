@@ -108,9 +108,18 @@ def native_tokenizer(num_threads: int = 0, on_error: str = "raise"):
     tolerate = 1 if on_error == "drop_slice" else 0
 
     def tokenize(data: bytes, slices, params: PictureParams,
-                 geom: PictureGeometry) -> PictureTokens:
-        tokens = PictureTokens.empty(geom)
-        tokens.row_nnz = np.empty(tokens.cblk.shape[0], np.uint8)
+                 geom: PictureGeometry, out: PictureTokens | None = None
+                 ) -> PictureTokens:
+        """``out``: tokens of the same geometry whose arrays are reused
+        (cleared first) instead of allocating new ones."""
+        if out is None:
+            tokens = PictureTokens.empty(geom)
+            tokens.row_nnz = np.empty(tokens.cblk.shape[0], np.uint8)
+        elif out.geom != geom or out.row_nnz is None:
+            raise ValueError("out: tokens of another geometry, or not made "
+                             "by this tokenizer")
+        else:
+            tokens = out.clear()
         if not slices:
             return tokens
         bitpos = np.asarray([bp for bp, _ in slices], np.uint64)

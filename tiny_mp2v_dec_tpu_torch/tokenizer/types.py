@@ -146,6 +146,18 @@ class PictureTokens:
             coded=np.zeros(n, bool),
         )
 
+    def clear(self) -> "PictureTokens":
+        """Back to the state of :meth:`empty`, keeping the arrays: the
+        per-MB vectors zeroed and no coded rows (a row is zeroed when it is
+        claimed, so the coefficient store needs no reset)."""
+        for a in (self.intra, self.fwd, self.bwd, self.field_pred,
+                  self.dct_type, self.mv, self.mvfs, self.coded):
+            a.fill(0)
+        self.n_coded_blocks = 0
+        self.bad_slices = 0
+        self._dense = None
+        return self
+
     def alloc_block(self, mb_index: int, slot: int) -> np.ndarray:
         """Claim the next sparse row for block ``slot`` of ``mb_index``;
         returns the zeroed (64,) int16 coefficient row to fill."""

@@ -7,8 +7,9 @@ Decodes a committed 16-picture fixture — by default
 ``tests/data/interlaced_1080_422_16.m2v`` is the interlaced 4:2:2 one —
 with ``gop_chunk=16`` on ``cuda``:
 
-* stages: the decoder's own path taken apart, with a device synchronize
-  after each stage — tokenize (host), prepare (host), upload, decode_blob
+* stages: the decoder's own path taken apart on one thread, with a device
+  synchronize after each stage — tokenize (host), prepare (host), upload
+  (from the pinned staging slot, ``GopRecon.upload``), decode_blob
   (pairs -> rows, K1, dense grid), and the per-picture reconstruction loop
   (residual layout, mc_meta / mc_field_meta, the MC kernels, packing);
 * profiler: one unsynchronized decode under ``torch.profiler``, device
@@ -45,11 +46,14 @@ def _stages(torch, dec, data):
     field = any(bool(t.field_pred.any()) for t, _, _ in toks)
     recon = dec._gop_recon_for(geom, field, dec.config.gop_chunk)
     pcts = [ph.picture_coding_type for _, _, ph in toks]
-    (cap_pairs, cap_k), blob, n = recon.prepare([x[0] for x in toks], pcts)
+    staged = recon.prepare([x[0] for x in toks], pcts)
+    (cap_pairs, cap_k), blob, n = staged
     t.append(time.perf_counter())
-    up = torch.from_numpy(blob).to(recon.device, copy=True)
+    # the decoder's upload: from the pinned slot, not blocking the host
+    up, guard = recon.upload(staged)
     sync()
     t.append(time.perf_counter())
+    recon.mark_dispatched(staged, guard)
     recon._decode_blob(up, cap_pairs=cap_pairs, cap_k=cap_k)
     sync()
     t.append(time.perf_counter())
