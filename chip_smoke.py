@@ -53,21 +53,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device_s) / wall`` (above 1: the stages ran at the same time), beside
    the host's CPU count.  Last, the main path over several chunks
    (:data:`MULTI_CHUNK`): each stream four times over in one stream
-   (:func:`repeat_stream`) under ``mxu`` at ``gop_chunk=16``, each
-   16-frame group to the fixture's hash, every launch four times the
-   one-chunk decode's, with the host memory the decoder keeps after it
-   (:func:`host_kept_bytes`);
+   (``fixtures.repeat_stream`` of the package) under ``mxu`` at
+   ``gop_chunk=16``, each 16-frame group to the fixture's hash, every
+   launch four times the one-chunk decode's, with the host memory the
+   decoder keeps after it (:func:`host_kept_bytes`);
 5. the MC profiler and the kernel gate: the parity run of
    ``tools/profile_mc_variants.py`` (variants b, c = K9 and d = K10 equal
    to a), with the launch counts reset just before and read just after —
    exactly one launch each of K9 and K10 and of no other kernel — then
-   gates 1 and 2 of ``tools/perf_gate.py``, which must pass.
+   gates 1 and 2 of ``tools/perf_gate.py``, which must pass;
+6. the entry points, each phase timed: (a) natural content, the committed
+   SD stream (``tests/data/natural_576_420_16.m2v``, 720x576 4:2:0, made by
+   ``tests/natural_m2v.py``'s motion search) under ``mxu``, ``roll`` and
+   ``swar`` at ``gop_chunk`` 0, 4 and 16 (:data:`NATURAL`), each to its
+   JAX hash with the launches of :func:`natural_launches`; (b) the bench,
+   ``python3 -m tiny_mp2v_dec_tpu_torch.bench --repeats 3 --warmup 1`` on
+   the 64-picture stream, which must exit 0 after its own hash checks,
+   report its hash decode's launches as :data:`BENCH_LAUNCHES` says and end
+   with its four-key JSON line, its ``#`` lines printed here; (c) the CLI,
+   ``python3 -m tiny_mp2v_dec_tpu_torch.cli`` on the 16-picture 4:2:0
+   fixture at ``--gop-chunk`` 0 and 16, writing YUV into a temporary
+   directory whose sha256 must be the fixture's recorded one.
 
 The line before the last is the kernels' JSON record: per kernel its
-launches on its path, its error and device time against its plain
-version, and its bound (:func:`bound`); the line before it K2's and K3's
-one-MB times, K2's uncoded time, the all-mode-7 times and the empty
-kernel's; the last line is
+launches on its paths (the bench's hash decode among them), its error and
+device time against its plain version, and its bound (:func:`bound`);
+the line before it K2's and K3's one-MB times, K2's uncoded time, the
+all-mode-7 times and the empty kernel's; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -81,6 +93,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -115,10 +128,16 @@ DELIVERY = ((0, False), (1, True))
 REPEAT = 4
 MULTI_CHUNK = {name: {k: n * REPEAT for k, n in PATHS[name, "mxu"].items()}
                for name in PIPELINED}
-# the start codes repeat_stream cuts at: the first GOP header, and the
-# sequence end code, which closes a stream (the decoder stops there)
-GROUP_START = b"\x00\x00\x01\xb8"
-SEQUENCE_END = b"\x00\x00\x01\xb7"
+# natural content (phase 6a): the SD stream at each of these chunk sizes
+# under each MP2V_MC_IMPL
+NATURAL = "natural_576_420_16"
+NATURAL_CHUNKS = (0, 4, 16)
+# the launches of the bench's hash decode: the 64-picture stream under mxu
+# at gop_chunk=16, four chunks
+BENCH_LAUNCHES = {k: 4 * n for k, n in PATHS["bench_1080p_420_16",
+                                              "mxu"].items()}
+# seconds the bench (run short) and each CLI decode may take
+ENTRY_TIMEOUT = 300
 # every MC kernel's counter: the paths' and K7's one-component form, which
 # no path launches
 MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
@@ -152,6 +171,18 @@ CHROMA = (("4:2:0", (8, 8), 544, 960), ("4:2:2", (16, 8), 1088, 960),
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _fixtures():
+    """This checkout's ``tiny_mp2v_dec_tpu_torch/fixtures.py`` (the
+    fixtures' records, ``repeat_stream``), loaded by path:
+    ``tools/ab_decode.py`` decodes other checkouts' packages with it."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_fixtures", os.path.join(PACKAGE, "fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @functools.lru_cache(maxsize=None)
@@ -670,26 +701,6 @@ def profiler_and_gates(torch, _build):
     return launches
 
 
-def repeat_stream(data: bytes, times: int) -> bytes:
-    """``data``, one sequence (its header, then GOPs, then the sequence end
-    code), ``times`` times over as one sequence: every copy but the first
-    starts at its first GOP header, and every copy but the last loses its
-    end code.  Where each picture carries its own quant matrix extension,
-    as in both fixtures, it decodes to ``data``'s frames ``times`` times
-    over.  A later copy keeps no sequence header because the decoders (the
-    JAX package's, its golden model and the port) decode the picture
-    before a sequence header with that header's state, its downloaded
-    matrices reset (ROADMAP Queue 3)."""
-    gop = data.find(GROUP_START)
-    if not data.endswith(SEQUENCE_END) or gop < 0:
-        raise ValueError("the stream does not end with a sequence end code "
-                         "or has no GOP header")
-    if times == 1:
-        return data
-    end = len(data) - len(SEQUENCE_END)
-    return data[:end] + data[gop:end] * (times - 2) + data[gop:]
-
-
 def host_kept_bytes(dec) -> int:
     """Host bytes a decoder keeps between decodes: the token arrays it
     keeps for reuse (``MP2VDecoder._spare_tokens``, where it has them) and
@@ -709,23 +720,22 @@ def host_kept_bytes(dec) -> int:
 
 def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
                 expected, gop_chunk=16, pool=0, output_host=False,
-                repeat=1):
+                repeat=1, runs=None):
     """Decode one fixture (``repeat`` times over in one stream) under
     ``MP2V_MC_IMPL=impl`` through the decoder's entry point with the
     launch counts reset just before and read just after; check the hash
     (of each repeat), that every kernel of the path launched as often as
     ``expected`` says and that no MC kernel of another implementation
-    did; then time warm decodes.  Returns (launches, frames/s, overlap:
-    the median over the warm decodes of ``(tokenize_s + fill_s +
-    device_s) / wall``)."""
-    with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
-        data = f.read()
-    with open(os.path.join(DATA, name + ".json")) as f:
-        want = json.load(f)
-    if hashlib.sha256(data).hexdigest() != want["stream_sha256"]:
-        fail(f"{name}: the stream fixture does not match its recorded "
-             f"sha256")
-    data = repeat_stream(data, repeat)
+    did; then time ``runs`` warm decodes (by default
+    :data:`DECODE_RUNS`).  Returns (launches, frames/s, overlap: the
+    median over the warm decodes of ``(tokenize_s + fill_s + device_s) /
+    wall``)."""
+    fixtures = _fixtures()
+    try:
+        data, want = fixtures.load(name)
+    except ValueError as e:
+        fail(str(e))
+    data = fixtures.repeat_stream(data, repeat)
     os.environ["MP2V_MC_IMPL"] = impl
     dec = MP2VDecoder(DecoderConfig(gop_chunk=gop_chunk,
                                     output_host=output_host,
@@ -740,18 +750,13 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     frames = dec.decode(data)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    digest, n_bytes = yuv_sha256(frames)
+    digest, n_bytes = fixtures.yuv_sha256(frames)
     print(f"decode {label}: {len(frames)} frames, {n_bytes} YUV bytes, "
           f"sha256 {digest}; launches {launches}")
-    per = want["frames"]
-    if len(frames) != per * repeat or n_bytes != want["yuv_bytes"] * repeat:
-        fail(f"{label}: decoded {len(frames)} frames / {n_bytes} bytes, "
-             f"expected {per * repeat} / {want['yuv_bytes'] * repeat}")
-    groups = ([yuv_sha256(frames[i * per:(i + 1) * per])[0]
-               for i in range(repeat)] if repeat > 1 else [digest])
-    if any(g != want["yuv_sha256"] for g in groups):
-        fail(f"{label}: YUV sha256 {groups} != JAX reference "
-             f"{want['yuv_sha256']}")
+    try:
+        fixtures.check_frames(frames, want, repeat)
+    except ValueError as e:
+        fail(f"{label}: {e}")
     for k, n in expected.items():
         if launches.get(k, 0) != n:
             fail(f"{label}: kernel {k} launched {launches.get(k, 0)} "
@@ -761,7 +766,7 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     if stray:
         fail(f"{label}: MC kernels of another implementation launched: "
              f"{stray}")
-    runs = DECODE_RUNS[impl]
+    runs = DECODE_RUNS[impl] if runs is None else runs
     walls, overlaps = [], []
     for _ in range(runs):
         dec.reset()
@@ -782,14 +787,79 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     return launches, fps, overlap
 
 
-def yuv_sha256(frames) -> tuple:
-    h = hashlib.sha256()
-    n = 0
-    for f in frames:
-        b = f.tobytes()
-        h.update(b)
-        n += len(b)
-    return h.hexdigest(), n
+def natural_launches(impl: str, gop_chunk: int) -> dict:
+    """The launches of a decode of the natural stream's 16 frame-predicted
+    pictures: K1 once a chunk (a picture is a chunk at ``gop_chunk=0``),
+    the MC kernels of ``impl`` once a picture."""
+    mc = {"mxu": ("mc_recon_luma", "mc_recon_uv"),
+          "roll": ("mc_roll_luma", "mc_roll_uv"),
+          "swar": ("mc_swar_yuv",)}[impl]
+    return {"idct8x8": 16 // gop_chunk if gop_chunk else 16,
+            **{k: 16 for k in mc}}
+
+
+def entry_point(args: list, label: str) -> subprocess.CompletedProcess:
+    """``python3 -m tiny_mp2v_dec_tpu_torch.<args>`` from this checkout,
+    as a user runs it, under the default ``MP2V_MC_IMPL``; fails the run
+    unless it exits 0."""
+    proc = subprocess.run([sys.executable, "-m",
+                           f"tiny_mp2v_dec_tpu_torch.{args[0]}", *args[1:]],
+                          cwd=REPO, capture_output=True, text=True,
+                          env={**os.environ, "MP2V_MC_IMPL": "mxu"},
+                          timeout=ENTRY_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"{label} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc
+
+
+def run_bench() -> dict:
+    """Phase 6b: the bench, run short, on the 64-picture stream.  Checks
+    that it exited 0, that its hash check passed with the launches of
+    :data:`BENCH_LAUNCHES`, and that its last line holds the four keys
+    with a value above 0; prints its ``#`` lines.  Returns its hash
+    decode's launches."""
+    proc = entry_point(["bench", "--repeats", "3", "--warmup", "1"], "bench")
+    lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+    for ln in lines:
+        print(f"bench {ln}")
+    hashed = [ln for ln in lines if ln.startswith("# hash: ")]
+    if len(hashed) != 1 or " is the JAX package's; launches " not in \
+            hashed[0]:
+        fail(f"bench: no passed hash check in {lines}")
+    launches = json.loads(hashed[0].split("; launches ", 1)[1])
+    if launches != BENCH_LAUNCHES:
+        fail(f"bench: hash decode launched {launches}, expected "
+             f"{BENCH_LAUNCHES}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"bench result: {json.dumps(last)}")
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or not (
+            last["value"] > 0):
+        fail(f"bench: last line {last}")
+    return launches
+
+
+def run_cli(tmp: str) -> None:
+    """Phase 6c: the CLI on the 16-picture 4:2:0 fixture at
+    ``--gop-chunk`` 0 and 16, each output file's sha256 held to the
+    fixture's recorded YUV hash."""
+    name = "bench_1080p_420_16"
+    _, want = _fixtures().load(name)
+    for chunk in (0, 16):
+        out = os.path.join(tmp, f"{name}_{chunk}.yuv")
+        proc = entry_point(["cli", "-v", os.path.join(DATA, name + ".m2v"),
+                            "-o", out, "--gop-chunk", str(chunk)],
+                           f"cli --gop-chunk {chunk}")
+        h = hashlib.sha256()
+        with open(out, "rb") as f:
+            for block in iter(lambda: f.read(1 << 22), b""):
+                h.update(block)
+        os.remove(out)
+        print(f"cli --gop-chunk {chunk}: "
+              f"{proc.stdout.strip().splitlines()[0]}; YUV sha256 "
+              f"{h.hexdigest()}")
+        if h.hexdigest() != want["yuv_sha256"]:
+            fail(f"cli --gop-chunk {chunk}: YUV sha256 {h.hexdigest()} != "
+                 f"JAX reference {want['yuv_sha256']}")
 
 
 def main() -> int:
@@ -798,9 +868,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
-    missing = [p for p in [PACKAGE] + [os.path.join(DATA, n + ".m2v")
-                                       for n, _ in PATHS]
-               if not os.path.exists(p)]
+    missing = [p for p in [PACKAGE] + [
+        os.path.join(DATA, n + ".m2v")
+        for n in {n for n, _ in PATHS} | {NATURAL, "bench_1080p_420_64"}]
+        if not os.path.exists(p)]
     if missing:
         fail(f"run from a checkout of the repository: {missing} missing")
     sys.path.insert(0, REPO)
@@ -883,6 +954,28 @@ def main() -> int:
 
     # 5) the MC profiler (K9, K10) and the kernel gate
     launches.update(profiler_and_gates(torch, _build))
+
+    # 6) the entry points: (a) natural content through every MC
+    # implementation at three chunk sizes, (b) the bench, (c) the CLI
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    for impl in ("mxu", "roll", "swar"):
+        for chunk in NATURAL_CHUNKS:
+            counts, _, _ = decode_path(
+                torch, _build, MP2VDecoder, DecoderConfig, NATURAL, impl,
+                natural_launches(impl, chunk), gop_chunk=chunk, runs=2)
+            add(counts)
+    t1 = time.perf_counter()
+    add(run_bench())
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cli(tmp)
+    t3 = time.perf_counter()
+    print(f"entry-point phases: natural content {t1 - t0:.1f} s, bench "
+          f"{t2 - t1:.1f} s, CLI {t3 - t2:.1f} s")
 
     csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"

@@ -1,11 +1,16 @@
 """The kernel build (``ops/_build.py``) with a stand-in ``nvcc``, the
-summary of ``tools/ab_kernel_times.py`` and the port's copy of the C++
-tokenizer: all run without a card."""
+summary of ``tools/ab_kernel_times.py``, the port's copy of the C++
+tokenizer, and the two libraries' loads from many threads at once: all run
+without a card."""
 import os
 import stat
 import subprocess
 import sys
+import threading
+import time
+import types
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,7 +19,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import ab_kernel_times  # noqa: E402
+from torch_parity import ipb_stream  # noqa: E402
+from tiny_mp2v_dec_tpu import headers as H  # noqa: E402
+from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops import _build  # noqa: E402
+from tiny_mp2v_dec_tpu_torch.tokenizer import native  # noqa: E402
 
 # writes its -o argument, or fails when its command line holds the pattern
 FAKE_NVCC = """#!/bin/sh
@@ -223,3 +232,102 @@ def test_tokenizer_sources_are_the_jax_packages(name):
     with open(port, "rb") as f, open(os.path.join(
             REPO, "tiny_mp2v_dec_tpu", "tokenizer", "csrc", name), "rb") as g:
         assert f.read() == g.read()
+
+
+def _at_once(n: int, fn) -> list:
+    """``fn()`` on ``n`` threads released together, under a short switch
+    interval; the results in thread order.  Fails on an exception in a
+    thread or on a thread still running after 120 s."""
+    barrier = threading.Barrier(n)
+    results, errors = [None] * n, []
+
+    def run(i):
+        try:
+            barrier.wait(timeout=30)
+            results[i] = fn()
+        except Exception as e:  # reported below, from the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    return results
+
+
+def test_tokenizer_loads_once_from_eight_threads(monkeypatch):
+    """Eight threads each load the tokenizer (from a fresh module state,
+    the build slowed so that all of them ask before the first has loaded)
+    and tokenize a stream: one build, one library, and every thread's
+    tokens equal to one thread's alone."""
+    data = ipb_stream(np.random.default_rng(88), 4, 3, H.CHROMA_420)
+
+    def tokenize():
+        return MP2VDecoder(DecoderConfig(device="cpu", num_threads=1)
+                           ).tokenize_stream(data)
+
+    want = tokenize()
+    builds = []
+    real_build = native.build
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return real_build()
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build", slow_build)
+    results = _at_once(8, lambda: (native._load(), tokenize()))
+    assert len(builds) == 1
+    assert all(lib is native._lib for lib, _ in results)
+    for _, got in results:
+        assert len(got) == len(want)
+        for (t, geom, _), (w, wgeom, _) in zip(got, want):
+            n = w.n_coded_blocks
+            assert geom == wgeom and t.n_coded_blocks == n
+            for k, a in vars(w).items():
+                if isinstance(a, np.ndarray):
+                    # the coefficient rows past the coded blocks are not
+                    # written
+                    rows = n if k in ("cblk", "cblk_idx", "row_nnz") else None
+                    np.testing.assert_array_equal(vars(t)[k][:rows],
+                                                  a[:rows], err_msg=k)
+
+
+def test_kernel_library_loads_once_from_eight_threads(monkeypatch):
+    """Eight threads ask for the kernel library at once (a stand-in
+    library, the build slowed): one build, one load, one library for all,
+    every entry point declared."""
+    builds, loads = [], []
+
+    class Library:
+        def __init__(self, path):
+            loads.append(path)
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, types.SimpleNamespace())
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return "libstand-in.so"
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build, "C", types.SimpleNamespace(
+        CDLL=Library, c_int=_build.C.c_int))
+    libs = _at_once(8, _build.kernel_library)
+    assert len(builds) == 1 and loads == ["libstand-in.so"]
+    assert all(lib is libs[0] for lib in libs)
+    assert set(libs[0].fns) == set(_build._SIGNATURES)
+    assert all(fn.argtypes == _build._SIGNATURES[name]
+               for name, fn in libs[0].fns.items())

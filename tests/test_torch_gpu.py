@@ -19,7 +19,6 @@ no JAX; there, skip ``tests/conftest.py`` (which configures JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 import hashlib
-import importlib.util
 import json
 import os
 
@@ -28,7 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder  # noqa: E402
+from tiny_mp2v_dec_tpu_torch import (  # noqa: E402
+    DecoderConfig, MP2VDecoder, fixtures)
 from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops.idct import (  # noqa: E402
     idct_blocks, idct_blocks_ref)
@@ -377,17 +377,12 @@ def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
 ])
 def test_decode_fixture_over_four_chunks(name, kernels):
     """The main path at ``gop_chunk=16`` over several chunks: the fixture
-    four times over in one stream (``chip_smoke.repeat_stream``) through
+    four times over in one stream (``fixtures.repeat_stream``) through
     the pipeline, each 16-frame group to the fixture's JAX hash, every
     launch four times the one-chunk decode's."""
     _require_cuda()
-    spec = importlib.util.spec_from_file_location(
-        "_chip_smoke", os.path.join(os.path.dirname(os.path.dirname(DATA)),
-                                    "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
-        data = smoke.repeat_stream(f.read(), 4)
+        data = fixtures.repeat_stream(f.read(), 4)
     with open(os.path.join(DATA, name + ".json")) as f:
         want = json.load(f)
     dec = MP2VDecoder(DecoderConfig(gop_chunk=16, output_host=False,
@@ -404,6 +399,36 @@ def test_decode_fixture_over_four_chunks(name, kernels):
               for k in ("idct8x8",) + kernels}
     assert counts == {"idct8x8": 4, **{k: 64 for k in kernels}}
     assert len(dec._spare_tokens) <= 32
+
+
+# MP2V_MC_IMPL -> the MC kernels of a frame-predicted picture
+FRAME_MC = {"mxu": ("mc_recon_luma", "mc_recon_uv"),
+            "roll": ("mc_roll_luma", "mc_roll_uv"),
+            "swar": ("mc_swar_yuv",)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gop_chunk", [0, 4, 16])
+@pytest.mark.parametrize("impl", sorted(FRAME_MC))
+def test_decode_natural_content(monkeypatch, impl, gop_chunk):
+    """Natural content (``natural_576_420_16``: 720x576 4:2:0 from
+    ``tests/natural_m2v.py``'s motion search) through each MC
+    implementation at each chunk size, to the JAX package's hash: K1 once
+    a chunk (a picture at ``gop_chunk=0``), the implementation's MC kernels
+    once a picture and no other MC kernel."""
+    _require_cuda()
+    monkeypatch.setenv("MP2V_MC_IMPL", impl)
+    data, want = fixtures.load("natural_576_420_16")
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=gop_chunk, output_host=False,
+                                    pictures_pool_size=0, device="cuda"))
+    before = dict(_build.LAUNCHES)
+    frames = dec.decode(data)
+    torch.cuda.synchronize()
+    counts = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
+              if n != before.get(k, 0)}
+    assert fixtures.check_frames(frames, want) == want["yuv_sha256"]
+    assert counts == {"idct8x8": 16 // gop_chunk if gop_chunk else 16,
+                      **{k: 16 for k in FRAME_MC[impl]}}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""PyTorch port, isolation: the port imports every module and decodes
-with JAX and the JAX package made unimportable, as on a GPU machine that
-has neither."""
+"""PyTorch port, isolation: the port imports every module, decodes, and
+runs its two command-line entry points (the CLI and the bench) with JAX
+and the JAX package made unimportable, as on a GPU machine that has
+neither."""
 import hashlib
 import json
 import os
@@ -32,10 +33,19 @@ frames = P.MP2VDecoder(P.DecoderConfig(gop_chunk=4, device="cpu")).decode(
 h = hashlib.sha256()
 for f in frames:
     h.update(f.tobytes())
+from tiny_mp2v_dec_tpu_torch import bench, cli
+yuv = sys.argv[3]
+rc_cli = cli.main(["-v", sys.argv[2], "-o", yuv, "--gop-chunk", "4",
+                   "--device", "cpu"])
+cli_sha = hashlib.sha256(open(yuv, "rb").read()).hexdigest()
+rc_bench = bench.main(["--device", "cpu", "--stream", sys.argv[2],
+                       "--repeats", "1", "--warmup", "0", "--no-capacity",
+                       "--no-latency", "--no-host-delivery"])
 leaked = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "tiny_mp2v_dec_tpu")))
 print(json.dumps({"sha256": h.hexdigest(), "frames": len(frames),
-                  "modules": mods, "leaked": leaked}))
+                  "modules": mods, "leaked": leaked, "rc_cli": rc_cli,
+                  "cli_sha256": cli_sha, "rc_bench": rc_bench}))
 """
 
 
@@ -43,10 +53,15 @@ def test_port_runs_without_jax(tmp_path):
     data = ipb_stream(np.random.default_rng(6060), 3, 2, H.CHROMA_420)
     path = tmp_path / "stream.m2v"
     path.write_bytes(data)
-    want = hashlib.sha256(b"".join(
-        f.tobytes() for f in decode_stream(data))).hexdigest()
+    yuv = b"".join(f.tobytes() for f in decode_stream(data))
+    want = hashlib.sha256(yuv).hexdigest()
+    # the record the bench holds the stream to
+    (tmp_path / "stream.json").write_text(json.dumps({
+        "stream_sha256": hashlib.sha256(data).hexdigest(),
+        "yuv_sha256": want, "yuv_bytes": len(yuv), "frames": 5}))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", CHILD, REPO, str(path)],
+    out = subprocess.run([sys.executable, "-c", CHILD, REPO, str(path),
+                          str(tmp_path / "out.yuv")],
                          capture_output=True, text=True, env=env,
                          cwd=str(tmp_path), timeout=300, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
@@ -57,6 +72,10 @@ def test_port_runs_without_jax(tmp_path):
     assert {"tiny_mp2v_dec_tpu_torch.tools.tbench",
             "tiny_mp2v_dec_tpu_torch.tools.profile_mc_variants",
             "tiny_mp2v_dec_tpu_torch.tools.perf_gate",
-            "tiny_mp2v_dec_tpu_torch.ops.mc_rows"} <= set(got["modules"])
+            "tiny_mp2v_dec_tpu_torch.ops.mc_rows",
+            "tiny_mp2v_dec_tpu_torch.bench",
+            "tiny_mp2v_dec_tpu_torch.cli"} <= set(got["modules"])
     assert got["frames"] == 5
     assert got["sha256"] == want
+    assert got["rc_cli"] == got["rc_bench"] == 0
+    assert got["cli_sha256"] == want

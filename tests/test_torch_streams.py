@@ -32,7 +32,8 @@ from tiny_mp2v_dec_tpu import DecoderConfig as JaxConfig  # noqa: E402
 from tiny_mp2v_dec_tpu import MP2VDecoder as JaxDecoder  # noqa: E402
 from tiny_mp2v_dec_tpu import headers as H  # noqa: E402
 from tiny_mp2v_dec_tpu.golden.decoder import decode_stream  # noqa: E402
-from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder  # noqa: E402
+from tiny_mp2v_dec_tpu_torch import (  # noqa: E402
+    DecoderConfig, MP2VDecoder, fixtures)
 from torch_parity import ipb_stream  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,7 +221,7 @@ def _qmext_stream(seed, n_pictures, mbw=3, mbh=2):
 
 @pytest.mark.parametrize("gop_chunk", CHUNKS + [7])
 def test_repeated_stream_decodes_to_repeated_frames(gop_chunk):
-    """``chip_smoke.repeat_stream``, the main path's multi-chunk input: a
+    """``fixtures.repeat_stream``, the main path's multi-chunk input: a
     stream of 7 pictures, each with its own quant matrices, four times
     over as one sequence decodes, on the port and on the golden model, to
     the stream's frames four times over (at ``gop_chunk=7`` one chunk a
@@ -229,11 +230,11 @@ def test_repeated_stream_decodes_to_repeated_frames(gop_chunk):
     with the staging slots)."""
     smoke = _smoke()
     data = _qmext_stream(61, 7)
-    four = smoke.repeat_stream(data, 4)
-    assert four.count(smoke.SEQUENCE_END) == 1
+    four = fixtures.repeat_stream(data, 4)
+    assert four.count(fixtures.SEQUENCE_END) == 1
     assert four.count(b"\x00\x00\x01\xb3") == 1
-    assert four.count(smoke.GROUP_START) == 4
-    assert smoke.repeat_stream(data, 1) == data
+    assert four.count(fixtures.GROUP_START) == 4
+    assert fixtures.repeat_stream(data, 1) == data
     once = decode_stream(data)
     assert_frames_equal(once * 4, decode_stream(four))
     dec = _port(gop_chunk=gop_chunk)
@@ -249,7 +250,7 @@ def test_repeated_stream_decodes_to_repeated_frames(gop_chunk):
     assert kept > 0 and smoke.host_kept_bytes(dec) == kept
     assert len(dec._spare_tokens) <= 2 * max(gop_chunk, 1)
     with pytest.raises(ValueError, match="sequence end"):
-        smoke.repeat_stream(data[:-4], 2)
+        fixtures.repeat_stream(data[:-4], 2)
 
 
 @pytest.mark.parametrize("gop_chunk", CHUNKS)

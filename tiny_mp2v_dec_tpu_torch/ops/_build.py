@@ -22,6 +22,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -66,6 +67,9 @@ _SIGNATURES = {
 }
 
 _lib = None
+# one load a process: two decoders' dispatch threads may launch their first
+# kernels at the same time
+_lib_lock = threading.Lock()
 
 
 def _sources() -> list:
@@ -117,15 +121,19 @@ def build(force: bool = False) -> str:
 
 
 def kernel_library():
-    """The loaded kernel library (built first when needed)."""
+    """The loaded kernel library (built first when needed), loaded once
+    whichever thread asks first."""
     global _lib
-    if _lib is None:
-        lib = C.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = C.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = C.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = C.c_int
+            _lib = lib
     return _lib
 
 

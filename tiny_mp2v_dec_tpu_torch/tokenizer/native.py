@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes as C
+import threading
 
 import numpy as np
 
@@ -48,29 +49,39 @@ class _TokenOut(C.Structure):
 
 
 _lib = None
+# one build and load a process: two decoders' callers may tokenize their
+# first pictures at the same time
+_lib_lock = threading.Lock()
 
 
 def _load():
+    """The loaded library (built first when needed), loaded once whichever
+    thread asks first."""
     global _lib
-    if _lib is None:
-        lib = C.CDLL(build())
-        lib.mp2v_tokenize_picture.restype = C.c_int
-        lib.mp2v_tokenize_picture.argtypes = [
-            C.c_char_p, C.c_size_t, C.POINTER(C.c_uint64),
-            C.POINTER(C.c_int32), C.c_int, C.POINTER(_PicParams),
-            C.POINTER(_TokenOut), C.c_int, C.c_int, C.POINTER(C.c_int32)]
-        lib.mp2v_count_pairs.restype = C.c_longlong
-        lib.mp2v_count_pairs.argtypes = [
-            C.POINTER(C.c_int16), C.c_int32, C.POINTER(C.c_uint8)]
-        lib.mp2v_pack_pairs.restype = C.c_longlong
-        lib.mp2v_pack_pairs.argtypes = [
-            C.POINTER(C.c_int16), C.c_int32, C.POINTER(C.c_uint8),
-            C.POINTER(C.c_int16)]
-        lib.mp2v_tokenizer_abi_version.restype = C.c_int
-        version = lib.mp2v_tokenizer_abi_version()
-        if version != 5:
-            raise RuntimeError(f"native tokenizer ABI {version}, expected 5")
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = C.CDLL(build())
+            lib.mp2v_tokenize_picture.restype = C.c_int
+            lib.mp2v_tokenize_picture.argtypes = [
+                C.c_char_p, C.c_size_t, C.POINTER(C.c_uint64),
+                C.POINTER(C.c_int32), C.c_int, C.POINTER(_PicParams),
+                C.POINTER(_TokenOut), C.c_int, C.c_int,
+                C.POINTER(C.c_int32)]
+            lib.mp2v_count_pairs.restype = C.c_longlong
+            lib.mp2v_count_pairs.argtypes = [
+                C.POINTER(C.c_int16), C.c_int32, C.POINTER(C.c_uint8)]
+            lib.mp2v_pack_pairs.restype = C.c_longlong
+            lib.mp2v_pack_pairs.argtypes = [
+                C.POINTER(C.c_int16), C.c_int32, C.POINTER(C.c_uint8),
+                C.POINTER(C.c_int16)]
+            lib.mp2v_tokenizer_abi_version.restype = C.c_int
+            version = lib.mp2v_tokenizer_abi_version()
+            if version != 5:
+                raise RuntimeError(f"native tokenizer ABI {version}, "
+                                   f"expected 5")
+            _lib = lib
     return _lib
 
 

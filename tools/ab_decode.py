@@ -16,7 +16,7 @@ motion, from this checkout) under ``MP2V_MC_IMPL=mxu`` through
 ``cuda``.  ``--chunks`` gives the configurations in the order each process
 runs them (default ``4 16 16x4``): ``G`` decodes the fixture at
 ``gop_chunk=G``, ``GxK`` the fixture ``K`` times over in one stream
-(``chip_smoke.repeat_stream``), so that ``16x4`` is the main path's
+(``tiny_mp2v_dec_tpu_torch/fixtures.py``'s ``repeat_stream``), so that ``16x4`` is the main path's
 ``gop_chunk=16`` on four chunks.  Each configuration: three decodes to warm
 up (the staging slots, three per blob shape, are made in the first three
 chunks), then ``R`` decodes (default 7), each timed from its first byte to
@@ -89,7 +89,8 @@ def run_one(root: str, runs: int, chunks=CHUNKS) -> dict:
             fixture = f.read()
         for conf in chunks:
             chunk, _, times = conf.partition("x")
-            data = smoke.repeat_stream(fixture, int(times or 1))
+            data = smoke._fixtures().repeat_stream(fixture,
+                                                   int(times or 1))
             dec = MP2VDecoder(DecoderConfig(gop_chunk=int(chunk),
                                             output_host=False,
                                             pictures_pool_size=0,

@@ -1,27 +1,42 @@
-"""Write the 16-picture stream fixtures that the PyTorch port decodes on
-the GPU (``chip_smoke.py``), with the hashes they are held to.
+"""Write the stream fixtures that the PyTorch port decodes on the GPU
+(``chip_smoke.py``, ``python3 -m tiny_mp2v_dec_tpu_torch.bench``), with the
+hashes they are held to.
 
 The machine with the GPU has no JAX, so it can neither generate a stream
 (the encoder imports the JAX package) nor decode a reference.  This tool
-does both here, once, for two streams:
+does both here, once, for these streams:
 
-* ``tests/data/bench_1080p_420_16.m2v``: ``make_bench_stream(16)``, the
-  stream ``bench.py`` times (1920x1088 4:2:0, frame prediction);
+* ``tests/data/bench_1080p_420_N.m2v``: ``make_bench_stream(N)``, the
+  stream ``bench.py`` times (1920x1088 4:2:0, frame prediction, random
+  content), at N = 16, 64 (the 64 pictures ``bench.py`` times, the port's
+  bench headline) and 8 (``bench.py``'s latency line); ``--pictures N``
+  writes it at any N;
 * ``tests/data/interlaced_1080_422_16.m2v``: interlaced content as 1080i
   broadcast and 4:2:2 production video code it — 1920x1088 4:2:2 frame
   pictures with field/frame-adaptive motion and DCT
   (``frame_pred_frame_dct=0``), I P B B …, every picture carrying all four
   quant matrices as ``make_bench_stream`` loads them, from seed 1729;
+* ``tests/data/natural_576_420_16.m2v``: 16 pictures of natural content
+  (``tests/natural_m2v.natural_stream``: a float DCT of synthesized
+  moving pictures, quantized with the default matrices, block-matching
+  motion search with half-pel candidates) at 720x576 4:2:0, the size of
+  PAL SD broadcast, I B B P ..., seed 576;
 * beside each, ``.json``: the stream's sha256 and the sha256, byte count
   and frame count of the YUV (display order, planes concatenated per
   frame) that the JAX package decodes from it on the CPU with
   ``gop_chunk=16``; for the interlaced stream also its counts of
   field-predicted and field-DCT macroblocks.
 
-Run from the repository root:  ``python tools/make_torch_fixture.py``
+Run from the repository root:
+
+    python tools/make_torch_fixture.py [NAME ...] [--pictures N ...]
+
+with no argument it writes every fixture of :data:`FIXTURES` (about 2
+minutes on a CPU).
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -37,18 +52,37 @@ for _p in (_REPO, os.path.join(_REPO, "tools"),
         sys.path.insert(0, _p)
 
 N_PICTURES = 16
+# every reference hash is the JAX package's decode at this chunk size
+GOP_CHUNK = 16
 DATA_DIR = os.path.join(_REPO, "tests", "data")
 STREAM_NAME = "bench_1080p_420_16.m2v"
 META_NAME = "bench_1080p_420_16.json"
 INTERLACED_STREAM_NAME = "interlaced_1080_422_16.m2v"
 INTERLACED_META_NAME = "interlaced_1080_422_16.json"
+# the natural stream: 45 x 36 MBs (720x576), its seed
+NATURAL_MBS = (45, 36)
+NATURAL_SEED = 576
 
 
-def make_stream() -> bytes:
-    """The benchmark stream, generated from its fixed seed."""
+def bench_name(n_pictures: int) -> str:
+    return f"bench_1080p_420_{n_pictures}"
+
+
+def make_stream(n_pictures: int = N_PICTURES) -> bytes:
+    """The benchmark stream of ``n_pictures``, generated from its fixed
+    seed."""
     from bench_stream import make_bench_stream
     with tempfile.TemporaryDirectory() as tmp:
-        return make_bench_stream(N_PICTURES, tmp)
+        return make_bench_stream(n_pictures, tmp)
+
+
+def make_natural_stream() -> bytes:
+    """The SD natural-content stream, generated from its fixed seed (about
+    12 s on a CPU: the motion search runs in numpy)."""
+    from natural_m2v import natural_stream
+    mbw, mbh = NATURAL_MBS
+    return natural_stream(seed=NATURAL_SEED, mbw=mbw, mbh=mbh,
+                          n_pics=N_PICTURES)
 
 
 def _full_qmext(rng):
@@ -90,7 +124,7 @@ def describe(data: bytes, field_counts: bool = False) -> dict:
     with ``field_counts``, also how many macroblocks are field-predicted
     and field-DCT coded."""
     from tiny_mp2v_dec_tpu import DecoderConfig, MP2VDecoder
-    frames = MP2VDecoder(DecoderConfig(gop_chunk=N_PICTURES)).decode(data)
+    frames = MP2VDecoder(DecoderConfig(gop_chunk=GOP_CHUNK)).decode(data)
     yuv = hashlib.sha256()
     n_bytes = 0
     for f in frames:
@@ -113,19 +147,42 @@ def describe(data: bytes, field_counts: bool = False) -> dict:
     return meta
 
 
-def main() -> int:
+# name -> (maker, whether the record counts field MBs)
+FIXTURES = {
+    bench_name(16): (make_stream, False),
+    "interlaced_1080_422_16": (make_interlaced_stream, True),
+    bench_name(64): (lambda: make_stream(64), False),
+    bench_name(8): (lambda: make_stream(8), False),
+    "natural_576_420_16": (make_natural_stream, False),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*", metavar="NAME",
+                    help=f"fixtures to write, of {', '.join(FIXTURES)} "
+                         f"(default: all of them, unless --pictures is "
+                         f"given)")
+    ap.add_argument("--pictures", type=int, nargs="+", default=[],
+                    metavar="N", help="write the bench stream of N "
+                    "pictures, bench_1080p_420_N")
+    args = ap.parse_args(argv)
+    unknown = sorted(set(args.names) - set(FIXTURES))
+    if unknown:
+        ap.error(f"no fixture named {', '.join(unknown)}")
+    todo = {name: FIXTURES[name] for name in args.names}
+    for n in args.pictures:
+        todo[bench_name(n)] = (lambda n=n: make_stream(n), False)
     os.makedirs(DATA_DIR, exist_ok=True)
-    for stream_name, meta_name, data, counts in (
-            (STREAM_NAME, META_NAME, make_stream(), False),
-            (INTERLACED_STREAM_NAME, INTERLACED_META_NAME,
-             make_interlaced_stream(), True)):
+    for name, (make, counts) in (todo or FIXTURES).items():
+        data = make()
         meta = describe(data, counts)
-        with open(os.path.join(DATA_DIR, stream_name), "wb") as f:
+        with open(os.path.join(DATA_DIR, name + ".m2v"), "wb") as f:
             f.write(data)
-        with open(os.path.join(DATA_DIR, meta_name), "w") as f:
+        with open(os.path.join(DATA_DIR, name + ".json"), "w") as f:
             json.dump(meta, f, indent=1)
             f.write("\n")
-        print(json.dumps(meta))
+        print(json.dumps({"name": name, **meta}))
     return 0
 
 
