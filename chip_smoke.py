@@ -61,7 +61,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``tools/profile_mc_variants.py`` (variants b, c = K9 and d = K10 equal
    to a), with the launch counts reset just before and read just after —
    exactly one launch each of K9 and K10 and of no other kernel — then
-   gates 1 and 2 of ``tools/perf_gate.py``, which must pass;
+   gates 1–3 of ``tools/perf_gate.py``, which must pass;
 6. the entry points, each phase timed: (a) natural content, the committed
    SD stream (``tests/data/natural_576_420_16.m2v``, 720x576 4:2:0, made by
    ``tests/natural_m2v.py``'s motion search) under ``mxu``, ``roll`` and
@@ -73,7 +73,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its four-key JSON line, its ``#`` lines printed here; (c) the CLI,
    ``python3 -m tiny_mp2v_dec_tpu_torch.cli`` on the 16-picture 4:2:0
    fixture at ``--gop-chunk`` 0 and 16, writing YUV into a temporary
-   directory whose sha256 must be the fixture's recorded one.
+   directory whose sha256 must be the fixture's recorded one;
+7. the serving and row-sharded paths, each phase timed, each decode with
+   the launch counts reset just before and read just after, every stream
+   to its JAX hash and every launch count exact: (a)
+   ``MP2VDecoder.decode_batch`` of four committed streams (:data:`BATCH`:
+   three geometry groups, two 1080p 4:2:0 streams of unequal length, the
+   shorter padded with no-op pictures, the interlaced stream on K4) under
+   ``mxu``, the two 1080p 4:2:0 streams also under ``roll`` and ``swar``
+   (:data:`BATCH_CASES`: K1 once a step); (b) serving at width: 16 copies
+   of the 16-picture 1080p 4:2:0 stream in one batch
+   (:data:`SERVE_LAUNCHES`), beside two independent decoders on two
+   threads (the bench's chip-capacity run) on the same stream; (c) first
+   the MC kernels of the row path at its shapes (:func:`check_bands`:
+   each of 4 bands of 17 MB rows of a 1080-line picture, K7 and K8 given
+   the band's rows as ``H=``, K2–K4 the band's residual rows, each equal
+   to its plain version on the band and to the same rows of the
+   whole-picture launch), then ``mesh="rows"`` in those 4 bands on the
+   1080p 4:2:0 and the interlaced streams under ``mxu`` and ``swar``
+   (:data:`ROWS`: K1 once a picture); each with warm frames/s.  Gate 3
+   (the serving step) is in phase 5's ``perf_gate`` record.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on its paths (the bench's hash decode among them), its error and
@@ -136,6 +155,41 @@ NATURAL_CHUNKS = (0, 4, 16)
 # at gop_chunk=16, four chunks
 BENCH_LAUNCHES = {k: 4 * n for k, n in PATHS["bench_1080p_420_16",
                                               "mxu"].items()}
+# phase 7 (a): decode_batch of these streams (three geometry groups; two
+# 1080p 4:2:0 streams of unequal length; the interlaced stream on K4);
+# MP2V_MC_IMPL -> (streams, launches on one card: K1 once a step, the
+# longest stream of a group setting its steps, the MC kernels once a stream
+# a step, no-op padding included)
+BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
+         NATURAL)
+BATCH_CASES = {
+    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_luma": 48, "mc_recon_uv": 48,
+                    "mc_field_luma": 16, "mc_field_uv": 16}),
+    "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
+                         "mc_roll_uv": 32}),
+    "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
+}
+# phase 7 (b): serving at width, this many copies of the 16-picture 1080p
+# 4:2:0 stream in one batch (BASELINE.json's "16x 1080p"), under mxu
+SERVE = "bench_1080p_420_16"
+SERVE_COPIES = 16
+SERVE_LAUNCHES = {"idct8x8": 16, "mc_recon_luma": 16 * SERVE_COPIES,
+                  "mc_recon_uv": 16 * SERVE_COPIES}
+# phase 7 (c): mesh="rows" in this many bands (68 MB rows: 17 a band);
+# (fixture, MP2V_MC_IMPL) -> launches: K1 once a picture, the MC kernels
+# once a band a picture (the interlaced stream's I picture, which has no
+# field MB, on the frame kernels)
+ROW_BANDS = 4
+ROWS = {
+    ("bench_1080p_420_16", "mxu"): {
+        "idct8x8": 16, "mc_recon_luma": 64, "mc_recon_uv": 64},
+    ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
+    ("interlaced_1080_422_16", "mxu"): {
+        "idct8x8": 16, "mc_recon_luma": 4, "mc_recon_uv": 4,
+        "mc_field_luma": 60, "mc_field_uv": 60},
+    ("interlaced_1080_422_16", "swar"): {
+        "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
+}
 # seconds the bench (run short) and each CLI decode may take
 ENTRY_TIMEOUT = 300
 # every MC kernel's counter: the paths' and K7's one-component form, which
@@ -166,6 +220,18 @@ DECODE_RUNS = {"mxu": 5, "roll": 3, "swar": 3}
 LUMA = (("luma", (16, 16), 1088, 1920),)
 CHROMA = (("4:2:0", (8, 8), 544, 960), ("4:2:2", (16, 8), 1088, 960),
           ("4:4:4", (16, 16), 1088, 1920))
+# phase 7 (c)'s MC kernels on the row path's bands (check_bands):
+# (kernel, MP2V_MC_IMPL, U+V, field, the planes the row path gives it on
+# the two 1080-line streams)
+BAND_MC = (
+    ("K2 mc_recon_luma", "mxu", False, False, LUMA),
+    ("K3 mc_recon_uv", "mxu", True, False, CHROMA[:1]),
+    ("K4 mc_field_luma", "mxu", False, True, LUMA),
+    ("K4 mc_field_uv", "mxu", True, True, CHROMA[1:2]),
+    ("K8 mc_swar_field", "swar", False, True, LUMA + CHROMA[1:2]),
+)
+# ... and K7's picture form, at the chroma planes of both streams
+BAND_YUV = CHROMA[:2]
 
 
 def fail(msg: str) -> None:
@@ -678,8 +744,8 @@ def check_rows(torch):
 
 def profiler_and_gates(torch, _build):
     """Phase 5: the MC profiler's parity run with the launch counts reset
-    just before and read just after, then gates 1 and 2.  Returns the
-    parity run's launches."""
+    just before and read just after, then gates 1–3.  Returns the parity
+    run's launches."""
     from tiny_mp2v_dec_tpu_torch.tools import perf_gate
     from tiny_mp2v_dec_tpu_torch.tools import profile_mc_variants as pmv
     x = pmv.make_inputs(device="cuda")
@@ -862,6 +928,244 @@ def run_cli(tmp: str) -> None:
                  f"JAX reference {want['yuv_sha256']}")
 
 
+def _counted(torch, _build, label, expected, fn):
+    """``fn()`` with the launch counts reset just before and read just
+    after (a synchronize between); fails unless they are ``expected``
+    exactly.  Returns ``(fn's result, launches)``."""
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"{label}: launches {json.dumps(launches, sort_keys=True)}")
+    if launches != expected:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    return out, launches
+
+
+def _check_streams(label, outs, loaded) -> None:
+    fixtures = _fixtures()
+    for (name, want), frames in zip(loaded, outs):
+        try:
+            digest = fixtures.check_frames(frames, want)
+        except ValueError as e:
+            fail(f"{label}: {name}: {e}")
+    print(f"{label}: {len(outs)} streams, each YUV sha256 the JAX "
+          f"package's (last {digest})")
+
+
+def _warm_fps(torch, label, dec, fn) -> float:
+    """Frames/s of one more call of ``fn`` (a list of frame lists) from a
+    reset decoder, ended by a synchronize; printed with its stage
+    seconds."""
+    dec.reset()
+    t0 = time.perf_counter()
+    outs = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sum(len(frames) for frames in outs)
+    st = dec.stats
+    print(f"{label} warm: {n} frames in {wall:.4f} s = {n / wall:.2f} "
+          f"frames/s; tokenize {st['tokenize_s']:.4f} s (summed over "
+          f"threads), device {st['device_s']:.4f} s")
+    return n / wall
+
+
+def batch_path(torch, _build, MP2VDecoder, DecoderConfig, names, impl,
+               expected, label) -> tuple:
+    """Phase 7 (a) and (b): ``decode_batch`` of the committed streams
+    ``names`` under ``MP2V_MC_IMPL=impl`` on the card, launches counted
+    (:func:`_counted`), every stream held to its hash; then one warm
+    decode timed.  Returns (launches, frames/s)."""
+    fixtures = _fixtures()
+    loaded = []
+    for name in names:
+        try:
+            data, want = fixtures.load(name)
+        except ValueError as e:
+            fail(str(e))
+        loaded.append((name, data, want))
+    os.environ["MP2V_MC_IMPL"] = impl
+    dec = MP2VDecoder(DecoderConfig(output_host=False, device="cuda"))
+    streams = [d for _, d, _ in loaded]
+    label = f"decode_batch {label} [{impl}]"
+    outs, launches = _counted(torch, _build, label, expected,
+                              lambda: dec.decode_batch(streams))
+    _check_streams(label, outs, [(n, w) for n, _, w in loaded])
+    del outs
+    return launches, _warm_fps(torch, label, dec,
+                               lambda: dec.decode_batch(streams))
+
+
+def _band_cut(meta, sl):
+    """The per-MB vectors (field tuples included) of the MBs ``sl``."""
+    return [tuple(v[sl] for v in m) if isinstance(m, tuple) else m[sl]
+            for m in meta]
+
+
+def _same(torch, a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _rows(x, rows):
+    return tuple(p[rows] for p in x) if isinstance(x, tuple) else x[rows]
+
+
+def _hold_bands(torch, name, kern, plain, whole_rows, n_mb_row, per):
+    """Each of :data:`ROW_BANDS` bands of ``per`` MB rows: ``kern(sl, k)``
+    and ``plain(sl, k)`` on the band's MBs ``sl`` must be equal, and equal
+    to ``whole_rows(k)``, the same rows of the whole-picture launch."""
+    for k in range(ROW_BANDS):
+        sl = slice(k * per * n_mb_row, (k + 1) * per * n_mb_row)
+        got, want = kern(sl, k), plain(sl, k)
+        torch.cuda.synchronize()
+        if not _same(torch, got, want):
+            fail(f"{name}: band {k} differs from its plain version")
+        if not _same(torch, got, whole_rows(k)):
+            fail(f"{name}: band {k} differs from the same rows of the "
+                 f"whole-picture launch")
+
+
+def check_bands(torch, np, rng) -> None:
+    """Phase 7 (c)'s MC kernels at the row path's shapes: each of
+    :data:`ROW_BANDS` bands of MB rows of a 1080-line picture gets the
+    band's per-MB vectors (window starts in the whole reference), the
+    whole reference planes and, for K2–K4, the band's residual rows, for
+    K7 and K8 the band's output rows as ``H=``; its output must equal the
+    plain version's on the same band and the same rows of the
+    whole-picture launch, ``bidir`` True and False.  These launches are
+    not counted in the path's launches."""
+    from tiny_mp2v_dec_tpu_torch.ops import mc_fused
+    for name, impl, uv, field, planes in BAND_MC:
+        fn, ref_fn = mc_kernel(mc_fused, impl, uv, field)
+        for label, (th, tw), H, W in planes:
+            plane, resid, meta = mc_inputs(torch, np, rng, H, W, th, tw,
+                                           field)
+            refs = (((plane(), plane()), (plane(), plane())) if uv
+                    else (plane(), plane()))
+            res = ((resid(), resid()) if uv else resid()) \
+                if impl != "swar" else None
+            per = H // th // ROW_BANDS
+            for bidir in (True, False):
+                kw = dict(h=th, w=tw, bidir=bidir)
+                if res is None:
+                    whole = fn(*refs, *meta, **kw)
+
+                    def args(sl, k):
+                        return (*refs, *_band_cut(meta, sl)), {
+                            **kw, "H": per * th}
+                else:
+                    whole = fn(*refs, res, *meta, **kw)
+
+                    def args(sl, k):
+                        rows = slice(k * per * th, (k + 1) * per * th)
+                        return (*refs, _rows(res, rows),
+                                *_band_cut(meta, sl)), kw
+
+                def call(f):
+                    def run(sl, k):
+                        a, b = args(sl, k)
+                        return f(*a, **b)
+                    return run
+
+                _hold_bands(
+                    torch, f"{name} {label} bidir={bidir}", call(fn),
+                    call(ref_fn),
+                    lambda k: _rows(whole, slice(k * per * th,
+                                                 (k + 1) * per * th)),
+                    W // tw, per)
+            print(f"{name} {label}: {ROW_BANDS} bands of {per} MB rows of "
+                  f"{H}x{W}, bidir True and False: each equal to its plain "
+                  f"version and to the rows of the whole-picture launch")
+    for label, (th, tw), Hc, Wc in BAND_YUV:
+        Hy, Wy = Hc * 16 // th, Wc * 16 // tw
+        plane_y, _, meta_y = mc_inputs(torch, np, rng, Hy, Wy, 16, 16, False)
+        plane_c, _, meta_c = mc_inputs(torch, np, rng, Hc, Wc, th, tw, False)
+        mode = meta_y[6]
+        ref0 = (plane_y(), plane_c(), plane_c())
+        ref1 = (plane_y(), plane_c(), plane_c())
+        per = Hy // 16 // ROW_BANDS
+        for bidir in (True, False):
+            kw = dict(h=th, w=tw, bidir=bidir)
+            whole = mc_fused.fused_mc_pred_swar_yuv(ref0, ref1, meta_y[:6],
+                                                    meta_c[:6], mode, **kw)
+
+            def call(f):
+                return lambda sl, k: f(
+                    ref0, ref1, _band_cut(meta_y[:6], sl),
+                    _band_cut(meta_c[:6], sl), mode[sl], **kw, H=per * 16)
+
+            def whole_rows(k):
+                return tuple(p[k * per * t:(k + 1) * per * t]
+                             for p, t in zip(whole, (16, th, th)))
+
+            _hold_bands(torch, f"K7 mc_swar_yuv {label} bidir={bidir}",
+                        call(mc_fused.fused_mc_pred_swar_yuv),
+                        call(mc_fused.fused_mc_pred_swar_yuv_ref),
+                        whole_rows, Wy // 16, per)
+        print(f"K7 mc_swar_yuv {label}: {ROW_BANDS} bands of {per} MB rows "
+              f"of {Hy}x{Wy} + 2 x {Hc}x{Wc}, bidir True and False: each "
+              f"equal to its plain version and to the rows of the "
+              f"whole-picture launch")
+
+
+def rows_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
+              expected) -> tuple:
+    """Phase 7 (c): ``mesh="rows"`` in :data:`ROW_BANDS` bands on the
+    card.  Returns (launches, frames/s)."""
+    fixtures = _fixtures()
+    data, want = fixtures.load(name)
+    os.environ["MP2V_MC_IMPL"] = impl
+    dec = MP2VDecoder(DecoderConfig(mesh="rows", mesh_devices=ROW_BANDS,
+                                    output_host=False, device="cuda"))
+    label = f"mesh=rows x{ROW_BANDS} {name} [{impl}]"
+    frames, launches = _counted(torch, _build, label, expected,
+                                lambda: dec.decode(data))
+    _check_streams(label, [frames], [(name, want)])
+    return launches, _warm_fps(torch, label, dec, lambda: [dec.decode(data)])
+
+
+def serving_and_rows(torch, _build, MP2VDecoder, DecoderConfig) -> dict:
+    """Phase 7: (a) the stream batch of :data:`BATCH_CASES`, (b) serving
+    at width beside two independent decoders, (c) the row path's MC
+    kernels on its bands (:func:`check_bands`), then the row mesh of
+    :data:`ROWS`.  Returns the launches of the decodes."""
+    from tiny_mp2v_dec_tpu_torch import bench
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    for impl, (names, expected) in BATCH_CASES.items():
+        add(batch_path(torch, _build, MP2VDecoder, DecoderConfig, names,
+                       impl, expected, f"{len(names)} streams")[0])
+    t1 = time.perf_counter()
+    counts, fps = batch_path(torch, _build, MP2VDecoder, DecoderConfig,
+                             (SERVE,) * SERVE_COPIES, "mxu", SERVE_LAUNCHES,
+                             f"{SERVE_COPIES}x {SERVE}")
+    add(counts)
+    os.environ["MP2V_MC_IMPL"] = "mxu"
+    data, _ = _fixtures().load(SERVE)
+    pair = bench.Bench("cuda").capacity(data)
+    print(f"serving at width: {SERVE_COPIES} streams in one batch "
+          f"{fps:.2f} frames/s; two independent decoders on two threads "
+          f"(the bench's chip-capacity run, gop_chunk=16) on {SERVE} "
+          f"{pair:.2f} frames/s")
+    t2 = time.perf_counter()
+    import numpy as np
+    check_bands(torch, np, np.random.default_rng(2026))
+    for (name, impl), expected in ROWS.items():
+        add(rows_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
+                      expected)[0])
+    t3 = time.perf_counter()
+    print(f"serving and row phases: stream batch {t1 - t0:.1f} s, serving "
+          f"at width {t2 - t1:.1f} s, rows {t3 - t2:.1f} s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -870,7 +1174,7 @@ def main() -> int:
         fail("torch finds no CUDA device")
     missing = [p for p in [PACKAGE] + [
         os.path.join(DATA, n + ".m2v")
-        for n in {n for n, _ in PATHS} | {NATURAL, "bench_1080p_420_64"}]
+        for n in {n for n, _ in PATHS} | set(BATCH) | {"bench_1080p_420_64"}]
         if not os.path.exists(p)]
     if missing:
         fail(f"run from a checkout of the repository: {missing} missing")
@@ -976,6 +1280,9 @@ def main() -> int:
     t3 = time.perf_counter()
     print(f"entry-point phases: natural content {t1 - t0:.1f} s, bench "
           f"{t2 - t1:.1f} s, CLI {t3 - t2:.1f} s")
+
+    # 7) the serving and row-sharded paths
+    add(serving_and_rows(torch, _build, MP2VDecoder, DecoderConfig))
 
     csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"

@@ -185,8 +185,20 @@ def test_frame_and_field_chunks_share_references():
 @pytest.mark.parametrize("opts", [{"mesh": "rows"}, {"use_pallas": True},
                                   {"pallas_interpret": True}])
 def test_jax_only_options_are_refused(opts):
-    with pytest.raises(NotImplementedError):
-        DecoderConfig(device="cpu", **opts)
+    """The Pallas options stay refused; ``mesh="rows"``, refused until the
+    row-sharded path was ported, is accepted and decodes as the JAX
+    package's row mesh does."""
+    if "mesh" not in opts:
+        with pytest.raises(NotImplementedError):
+            DecoderConfig(device="cpu", **opts)
+        return
+    data = ipb_stream(np.random.default_rng(4242), 3, 4, H.CHROMA_420)
+    want = JaxDecoder(JaxConfig(mesh="rows", mesh_devices=4)).decode(data)
+    dec = MP2VDecoder(DecoderConfig(device="cpu", mesh_devices=4, **opts))
+    assert_frames_equal(dec.decode(data), want)
+    assert [r.n_shards for r in dec._mesh_recons.values()] == [4]
+    with pytest.raises(ValueError):
+        DecoderConfig(device="cpu", mesh="streams")
 
 
 def test_cuda_device_raises_without_gpu():

@@ -1,6 +1,7 @@
 """PyTorch port, the command-line entry points on the CPU: the CLI
 (``tiny_mp2v_dec_tpu_torch.cli``) against the JAX package's CLI with the
-same arguments, byte for byte, the flags it refuses, and the bench
+same arguments, byte for byte (``--mesh rows`` too), the flags it
+refuses, and the bench
 (``tiny_mp2v_dec_tpu_torch.bench``): its result line, its hash check and
 that it writes no file."""
 import builtins
@@ -89,7 +90,18 @@ def test_cli_bench_prints_both_lines(streams, capsys):
                                    ["--hosts", "2"]],
                          ids=["golden", "mesh", "hosts"])
 def test_cli_refuses_what_is_not_ported(streams, tmp_path, capsys, flags):
+    """``--golden`` and ``--hosts`` are refused, naming their ROADMAP item;
+    ``--mesh rows``, refused until row sharding was ported, writes the JAX
+    CLI's bytes."""
     out = tmp_path / "out.yuv"
+    if flags[0] == "--mesh":
+        want = tmp_path / "jax.yuv"
+        assert jax_cli(["-v", streams["clean"], "-o", str(want),
+                        *flags]) == 0
+        assert port_cli(["-v", streams["clean"], "-o", str(out), *flags,
+                         "--device", "cpu"]) == 0
+        assert out.read_bytes() == want.read_bytes()
+        return
     assert port_cli(["-v", streams["clean"], "-o", str(out), *flags,
                      "--device", "cpu"]) != 0
     assert not out.exists()

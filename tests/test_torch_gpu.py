@@ -10,7 +10,9 @@ K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
 at every phase, on the tightest plane and at 1088x1904), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, through
 the chunk pipeline at ``gop_chunk=4`` and four times over at
-``gop_chunk=16``, the MC profiler's parity run and the kernel gate.
+``gop_chunk=16``, the MC profiler's parity run and the kernel gate; and
+the serving and row-sharded paths: K7 and K8 on bands of MB rows,
+``decode_batch`` and ``mesh="rows"`` to the committed hashes.
 
 These tests skip where torch finds no CUDA device.  The file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine that has
@@ -744,4 +746,136 @@ def test_perf_gate_passes():
     from tiny_mp2v_dec_tpu_torch.tools import perf_gate
     rec = perf_gate.run_gates()
     assert rec["mc_equal"] and rec["chunk_equal"], rec
+    assert rec["serve_equal"], rec
     assert rec["pass"], rec
+
+
+# ---- the serving and row-sharded paths
+
+BANDS = 4
+
+
+def _bands(n_mb, mbw):
+    """The MB slices of :data:`BANDS` equal bands of MB rows."""
+    per = n_mb // mbw // BANDS
+    return [(k * per, per, slice(k * per * mbw, (k + 1) * per * mbw))
+            for k in range(BANDS)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("form", ["component", "field", "picture"])
+def test_swar_band_kernels_match_plain(form, bidir):
+    """K7 (both entry points) and K8 given an output band, ``H`` below the
+    reference's rows, as the row-sharded path launches them on a 1080-line
+    picture in 4 bands of 17 MB rows: each band's words equal the plain
+    version's band and the same rows of the whole-picture launch."""
+    dev = _require_cuda()
+    if form == "picture":
+        tile = (8, 8)
+        args = _yuv_case(dev, 31, 544, 960, tile)
+        whole = mc_fused.fused_mc_pred_swar_yuv(*args, h=8, w=8,
+                                                bidir=bidir)
+        for row0, per, sl in _bands(68 * 120, 120):
+            cut = (args[0], args[1], tuple(v[sl] for v in args[2]),
+                   tuple(v[sl] for v in args[3]), args[4][sl])
+            got = mc_fused.fused_mc_pred_swar_yuv(*cut, h=8, w=8,
+                                                  bidir=bidir, H=per * 16)
+            want = mc_fused.fused_mc_pred_swar_yuv_ref(
+                *cut, h=8, w=8, bidir=bidir, H=per * 16)
+            for c, (g, w, wh) in enumerate(zip(got, want, whole)):
+                th = 16 if c == 0 else tile[0]
+                assert torch.equal(g, w), (row0, c)
+                assert torch.equal(g, wh[row0 * th:(row0 + per) * th])
+        return
+    field = form == "field"
+    fn = (mc_fused.fused_mc_pred_swar_field if field
+          else mc_fused.fused_mc_pred_swar)
+    plain = (mc_fused.fused_mc_pred_swar_field_ref if field
+             else mc_fused.fused_mc_pred_swar_ref)
+    for H, W, tile in ((1088, 1920, (16, 16)), (544, 960, (8, 8))):
+        r0, r1, _, meta = _mc_case(dev, 32, H, W, tile, 1, field=field)
+        flat = [*meta[:7], *(meta[7] + meta[8] if field else ())]
+        nf = len(flat)
+        whole = fn(r0[0], r1[0], *meta, h=tile[0], w=tile[1], bidir=bidir)
+        for row0, per, sl in _bands(len(flat[0]), W // tile[1]):
+            cut = [v[sl] for v in flat]
+            parts = (*cut[:7], tuple(cut[7:13]), tuple(cut[13:nf])) \
+                if field else cut
+            kw = dict(h=tile[0], w=tile[1], bidir=bidir, H=per * tile[0])
+            got = fn(r0[0], r1[0], *parts, **kw)
+            assert got.shape == (per * tile[0], W // 4)
+            assert torch.equal(got, plain(r0[0], r1[0], *parts, **kw))
+            assert torch.equal(
+                got, whole[row0 * tile[0]:(row0 + per) * tile[0]])
+
+
+# the committed streams of the stream batch: three geometry groups, two
+# 1080p 4:2:0 streams of unequal length (the shorter padded with no-op
+# pictures), the interlaced stream on K4
+BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
+         "natural_576_420_16")
+# MP2V_MC_IMPL -> (streams, launches of their decode_batch on one card: K1
+# once a step, the longest stream of each group setting its steps; the MC
+# kernels once a stream a step, padding included)
+BATCH_CASES = {
+    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_luma": 48, "mc_recon_uv": 48,
+                    "mc_field_luma": 16, "mc_field_uv": 16}),
+    "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
+                         "mc_roll_uv": 32}),
+    "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
+}
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", sorted(BATCH_CASES))
+def test_decode_batch_fixtures(monkeypatch, impl):
+    """``decode_batch`` of the committed streams on the card: every
+    stream to its JAX hash, K1 once a step."""
+    _require_cuda()
+    monkeypatch.setenv("MP2V_MC_IMPL", impl)
+    names, launches = BATCH_CASES[impl]
+    loaded = [fixtures.load(n) for n in names]
+    dec = MP2VDecoder(DecoderConfig(output_host=False, device="cuda"))
+    before = dict(_build.LAUNCHES)
+    out = dec.decode_batch([d for d, _ in loaded])
+    assert _launched(before) == launches
+    for frames, (_, want) in zip(out, loaded):
+        assert fixtures.check_frames(frames, want) == want["yuv_sha256"]
+
+
+# (fixture, MP2V_MC_IMPL) -> launches of its decode in 4 bands on one card:
+# K1 once a picture, the MC kernels once a band a picture (the interlaced
+# stream's I picture, which has no field MB, on the frame kernels)
+ROWS = {
+    ("bench_1080p_420_16", "mxu"): {
+        "idct8x8": 16, "mc_recon_luma": 64, "mc_recon_uv": 64},
+    ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
+    ("interlaced_1080_422_16", "mxu"): {
+        "idct8x8": 16, "mc_recon_luma": 4, "mc_recon_uv": 4,
+        "mc_field_luma": 60, "mc_field_uv": 60},
+    ("interlaced_1080_422_16", "swar"): {
+        "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,impl", sorted(ROWS))
+def test_mesh_rows_fixtures(monkeypatch, name, impl):
+    """``mesh="rows"`` with 4 bands (68 MB rows: 17 a band) on one card,
+    to the JAX hash."""
+    _require_cuda()
+    monkeypatch.setenv("MP2V_MC_IMPL", impl)
+    data, want = fixtures.load(name)
+    dec = MP2VDecoder(DecoderConfig(mesh="rows", mesh_devices=BANDS,
+                                    device="cuda"))
+    before = dict(_build.LAUNCHES)
+    frames = dec.decode(data)
+    assert _launched(before) == ROWS[name, impl]
+    assert fixtures.check_frames(frames, want) == want["yuv_sha256"]

@@ -96,6 +96,17 @@ def test_gate2_chunk_steps_agree_on_cpu():
     assert want[2].shape[0] == 5
 
 
+@pytest.mark.parametrize("impl", trecon.MC_IMPLS)
+def test_gate3_serve_steps_agree_on_cpu(impl):
+    """Gate 3's serving steps, kernels' wrappers against plain versions on
+    the CPU: equal reference lists and planes, two streams stacked."""
+    steps = perf_gate.serve_steps(_stream(), torch.device("cpu"),
+                                  mc_impl=impl)
+    want = steps["plain"]()
+    assert perf_gate._equal(steps["kernel"](), want)
+    assert [p.shape[0] for p in want[2]] == [perf_gate.SERVE_STREAMS] * 3
+
+
 FIELD = {"fpfd": False, "allow_field_motion": True}
 
 

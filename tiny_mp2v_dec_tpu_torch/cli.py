@@ -11,8 +11,9 @@ wall-clock decode time.  ``--bench N`` decodes the stream N times after the
 first pass and reports frames/s, the window ended by a synchronize.  The
 decode runs on the card (``--device cuda``, the default, which raises
 without one); ``--device cpu`` runs the kernels' plain PyTorch versions.
-``--golden``, ``--mesh`` and ``--hosts`` select parts of the JAX package
-that the port does not have yet; each is refused.
+``--mesh rows`` reconstructs each picture in bands of MB rows, one band
+per visible device.  ``--golden`` and ``--hosts`` select parts of the JAX
+package that the port does not have yet; each is refused.
 """
 from __future__ import annotations
 
@@ -28,8 +29,6 @@ from .runtime.decoder import DecoderConfig, MP2VDecoder
 NOT_PORTED = {
     "golden": "--golden needs the port's golden model, which is not ported "
               "yet (ROADMAP Queue 1, item 3)",
-    "mesh": "--mesh needs row sharding, which is not ported yet (ROADMAP "
-            "Queue 1, item 4)",
     "hosts": "--hosts needs the multi-host decoder, which is not ported yet "
              "(ROADMAP Queue 1, item 5)",
 }
@@ -56,8 +55,8 @@ def main(argv=None) -> int:
                     help="decode N pictures per chunk from one upload "
                          "(throughput mode; 0 = picture at a time)")
     ap.add_argument("--mesh", choices=["rows"],
-                    help="shard each picture's MB rows across local devices "
-                         "(not ported: refused)")
+                    help="shard each picture's MB rows across local "
+                         "devices")
     ap.add_argument("--hosts", type=int, default=0, metavar="N",
                     help="distribute closed GOPs over N worker processes "
                          "(not ported: refused)")
@@ -87,7 +86,7 @@ def main(argv=None) -> int:
 
     dec = MP2VDecoder(DecoderConfig(
         reordering=not args.no_reorder, width=w, height=h,
-        chroma_format=chroma, gop_chunk=args.gop_chunk,
+        chroma_format=chroma, gop_chunk=args.gop_chunk, mesh=args.mesh,
         on_error=args.on_error, device=args.device))
 
     def decode():

@@ -247,9 +247,13 @@ def _swar_dir(ref, sy, sx, ph, fld, mode, h, w):
 
 
 def _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f, fld_b,
-              h, w, bidir):
+              h, w, bidir, H=None):
+    """The packed prediction of an (H, Wr) output, by default the reference
+    planes' whole (Hr, Wr): a smaller ``H`` is a band of MB rows, whose
+    window vectors stay in the reference's coordinates."""
     Hr, Wr = ref0.shape
-    mbh, mbw = Hr // h, Wr // w
+    H = Hr if H is None else H
+    mbh, mbw = H // h, Wr // w
     f = ((mode & 1) != 0)[:, None, None]
     pred = _swar_dir(ref0, syf, sxf, phf, fld_f, mode, h, w)
     if bidir:
@@ -260,7 +264,7 @@ def _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f, fld_b,
     else:
         pred = torch.where(f, pred, 0)
     return words_to_int32(pred.reshape(mbh, mbw, h, w // 4).permute(
-        0, 2, 1, 3).reshape(Hr, Wr // 4))
+        0, 2, 1, 3).reshape(H, Wr // 4))
 
 
 def words_to_int32(words):
@@ -270,33 +274,38 @@ def words_to_int32(words):
 
 
 def fused_mc_pred_swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,
-                           *, h: int, w: int, bidir: bool = True):
+                           *, h: int, w: int, bidir: bool = True,
+                           H: int | None = None):
     """Plain PyTorch version of K7 on any device: the packed frame
-    prediction of one (Hr, Wr) component, (Hr, Wr // 4) int32 words.  A
-    word formulation (funnel shifts, :func:`avg_up`), beside the unpacked
-    gather of :func:`fused_mc_recon_ref`."""
+    prediction of one (Hr, Wr) component, (H, Wr // 4) int32 words (``H``
+    the output rows, by default Hr).  A word formulation (funnel shifts,
+    :func:`avg_up`), beside the unpacked gather of
+    :func:`fused_mc_recon_ref`."""
     return _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, None,
-                     None, h, w, bidir)
+                     None, h, w, bidir, H)
 
 
 def fused_mc_pred_swar_yuv_ref(ref0, ref1, meta_y, meta_c, mode, *,
-                               h: int = 8, w: int = 8, bidir: bool = True):
+                               h: int = 8, w: int = 8, bidir: bool = True,
+                               H: int | None = None):
     """Plain PyTorch version of K7's picture form on any device: the three
     word planes of :func:`fused_mc_pred_swar_yuv`, one
     :func:`fused_mc_pred_swar_ref` per component."""
+    H = ref0[0].shape[0] if H is None else H
     tiles = ((16, 16, meta_y), (h, w, meta_c), (h, w, meta_c))
     return tuple(
-        fused_mc_pred_swar_ref(r0, r1, *meta, mode, h=th, w=tw, bidir=bidir)
+        fused_mc_pred_swar_ref(r0, r1, *meta, mode, h=th, w=tw, bidir=bidir,
+                               H=H // 16 * th)
         for r0, r1, (th, tw, meta) in zip(ref0, ref1, tiles))
 
 
 def fused_mc_pred_swar_field_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb,
                                  mode, fld_f, fld_b, *, h: int, w: int,
-                                 bidir: bool = True):
+                                 bidir: bool = True, H: int | None = None):
     """Plain PyTorch version of K8 on any device: K7's words, with field
     prediction on the MBs whose mode has bit 8."""
     return _swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, fld_f,
-                     fld_b, h, w, bidir)
+                     fld_b, h, w, bidir, H)
 
 
 # ----------------------------------------------------------------------
@@ -329,18 +338,20 @@ _VECTOR_IO = {"mp2v_mc_recon_luma", "mp2v_mc_recon_uv", "mp2v_mc_field_luma",
               "mp2v_mc_field_uv", "mp2v_mc_roll_luma", "mp2v_mc_roll_uv"}
 
 
-def _check(entry, refs0, refs1, ress, meta, h, w):
+def _check(entry, refs0, refs1, ress, meta, h, w, H_out=None):
     """Check the planes and per-MB vectors kernel ``entry`` takes for one
     plane (or U and V) of (h x w) tiles; returns (H, W, Hr, Wr): the output
     planes' shape — the residual planes', or without a residual (the SWAR
-    kernels) the reference planes' whole extent — and the reference
-    planes'."""
+    kernels) ``H_out`` rows (by default the reference planes' Hr) of the
+    reference planes' width — and the reference planes'.  An output with
+    fewer rows than the reference is a band of MB rows: its window vectors
+    stay in the reference's coordinates."""
     if (h, w) not in _TILES[entry]:
         raise ValueError(f"{entry}: the kernel takes "
                          f"{sorted(_TILES[entry])} tiles, not {h}x{w}")
     dev = refs0[0].device
     Hr, Wr = refs0[0].shape
-    H, W = ress[0].shape if ress else (Hr, Wr)
+    H, W = ress[0].shape if ress else (Hr if H_out is None else H_out, Wr)
     if H % h or W % w:
         raise ValueError(f"{entry}: plane {H}x{W} is not a whole number of "
                          f"{h}x{w} tiles")
@@ -385,12 +396,14 @@ def _call(entry, counter, ptrs, h, w, n_mb, mbw, Hr, Wr, bidir, dev):
     _build.LAUNCHES[counter] += 1
 
 
-def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
+def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir,
+            H_out=None):
     """Check the arguments of kernel ``entry`` and launch it on the
     current stream; returns the output planes: one (H, W) uint8 plane per
     residual plane, or — for the SWAR kernels, given no residual — the
-    (Hr, Wr // 4) int32 words of the reference planes' whole extent."""
-    H, W, Hr, Wr = _check(entry, refs0, refs1, ress, meta, h, w)
+    (H_out, Wr // 4) int32 words (by default the reference planes' whole
+    extent)."""
+    H, W, Hr, Wr = _check(entry, refs0, refs1, ress, meta, h, w, H_out)
     dev = refs0[0].device
     if ress:
         outs = tuple(torch.empty((H, W), dtype=torch.uint8, device=dev)
@@ -406,30 +419,37 @@ def _launch(entry, counter, refs0, refs1, ress, meta, h, w, bidir):
     return outs
 
 
-def _launch_yuv(refs0, refs1, meta_y, meta_c, mode, h, w, bidir):
+def _launch_yuv(refs0, refs1, meta_y, meta_c, mode, h, w, bidir, H=None):
     """Check the arguments of K7's picture form — :func:`_check` on luma
     (16x16) and on U and V (h x w), then that the chroma planes are the
     luma plane's at that tile — and launch it on the current stream;
-    returns the three (H, W // 4) int32 word planes."""
+    returns the three int32 word planes of ``H`` luma rows (by default the
+    luma reference's Hr; a band of MB rows when fewer) and the chroma rows
+    of those MBs."""
     entry = "mp2v_mc_swar_yuv"
     if not len(refs0) == len(refs1) == 3 or not len(meta_y) == len(
             meta_c) == 6:
         raise ValueError(f"{entry}: takes (Y, U, V) reference triples and "
                          f"six per-MB vectors each for luma and chroma")
-    Hr, Wr = _check(entry, refs0[:1], refs1[:1], (), (*meta_y, mode), 16,
-                    16)[2:]
-    shape_c = _check(entry, refs0[1:], refs1[1:], (), (*meta_c, mode), h,
-                     w)[2:]
-    if shape_c != (Hr // 16 * h, Wr // 16 * w):
+    if H is not None and H % 16:
+        raise ValueError(f"{entry}: {H} luma rows are not whole MB rows")
+    band = H
+    H, _, Hr, Wr = _check(entry, refs0[:1], refs1[:1], (), (*meta_y, mode),
+                          16, 16, band)
+    Hc, _, *shape_c = _check(entry, refs0[1:], refs1[1:], (),
+                             (*meta_c, mode), h, w,
+                             None if band is None else band // 16 * h)
+    if tuple(shape_c) != (Hr // 16 * h, Wr // 16 * w):
         raise ValueError(f"{entry}: chroma planes {shape_c[0]}x{shape_c[1]} "
                          f"are not the {Hr}x{Wr} luma plane's at {h}x{w} "
                          f"tiles")
     dev = refs0[0].device
-    outs = tuple(torch.empty((x.shape[0], x.shape[1] // 4), dtype=torch.int32,
-                             device=dev) for x in refs0)
+    outs = tuple(torch.empty((rows, x.shape[1] // 4), dtype=torch.int32,
+                             device=dev)
+                 for rows, x in zip((H, Hc, Hc), refs0))
     ptrs = [x.data_ptr() for x in (*refs0, *refs1, *outs, *meta_y, *meta_c,
                                    mode)]
-    _call(entry, "mc_swar_yuv", ptrs, h, w, (Hr // 16) * (Wr // 16), Wr // 16,
+    _call(entry, "mc_swar_yuv", ptrs, h, w, (H // 16) * (Wr // 16), Wr // 16,
           Hr, Wr, bidir, dev)
     return outs
 
@@ -522,42 +542,49 @@ def fused_mc_recon_uv_roll(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb,
 
 
 def fused_mc_pred_swar(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode, *,
-                       h: int = 16, w: int = 16, bidir: bool = True):
+                       h: int = 16, w: int = 16, bidir: bool = True,
+                       H: int | None = None):
     """Packed frame prediction of one (Hr, Wr) component through kernel
-    K7: (Hr, Wr // 4) int32 words (mode bits 1 and 2 only; the caller
-    applies residual and coded mask).  CPU tensors: the plain version."""
+    K7: (H, Wr // 4) int32 words (mode bits 1 and 2 only; the caller
+    applies residual and coded mask).  ``H``, the output rows, defaults to
+    Hr; fewer is a band of MB rows, whose vectors (one per MB of the band)
+    hold window starts in the whole reference.  CPU tensors: the plain
+    version."""
     if _device_type("fused_mc_pred_swar", ref0) == "cpu":
         return fused_mc_pred_swar_ref(ref0, ref1, syf, sxf, phf, syb, sxb,
-                                      phb, mode, h=h, w=w, bidir=bidir)
+                                      phb, mode, h=h, w=w, bidir=bidir, H=H)
     return _launch("mp2v_mc_swar", "mc_swar", (ref0,), (ref1,), (),
-                   (syf, sxf, phf, syb, sxb, phb, mode), h, w, bidir)[0]
+                   (syf, sxf, phf, syb, sxb, phb, mode), h, w, bidir, H)[0]
 
 
 def fused_mc_pred_swar_yuv(ref0, ref1, meta_y, meta_c, mode, *, h: int = 8,
-                           w: int = 8, bidir: bool = True):
+                           w: int = 8, bidir: bool = True,
+                           H: int | None = None):
     """Packed frame prediction of one picture's three components in one
     launch of kernel K7.  ``ref0``/``ref1``: (Y, U, V) triples of reference
     planes, luma (Hr, Wr) in 16x16 tiles, U and V (Hr/16*h, Wr/16*w) in the
     (h x w) chroma tile; ``meta_y``/``meta_c``: the luma and the chroma
     (syf, sxf, phf, syb, sxb, phb), U and V sharing theirs; ``mode`` is
-    shared by all three.  Returns the three (rows, columns // 4) int32 word
-    planes.  CPU tensors: the plain version."""
+    shared by all three.  ``H``: the luma output rows, by default Hr; fewer
+    is a band of MB rows (U and V then give that band's chroma rows).
+    Returns the three (rows, columns // 4) int32 word planes.  CPU tensors:
+    the plain version."""
     if _device_type("fused_mc_pred_swar_yuv", ref0[0]) == "cpu":
         return fused_mc_pred_swar_yuv_ref(ref0, ref1, meta_y, meta_c, mode,
-                                          h=h, w=w, bidir=bidir)
+                                          h=h, w=w, bidir=bidir, H=H)
     return _launch_yuv(tuple(ref0), tuple(ref1), tuple(meta_y),
-                       tuple(meta_c), mode, h, w, bidir)
+                       tuple(meta_c), mode, h, w, bidir, H)
 
 
 def fused_mc_pred_swar_field(ref0, ref1, syf, sxf, phf, syb, sxb, phb, mode,
                              fld_f, fld_b, *, h: int = 16, w: int = 16,
-                             bidir: bool = True):
+                             bidir: bool = True, H: int | None = None):
     """:func:`fused_mc_pred_swar` with field prediction on the MBs whose
-    mode has bit 8, through kernel K8."""
+    mode has bit 8, through kernel K8 (``H`` as there)."""
     if _device_type("fused_mc_pred_swar_field", ref0) == "cpu":
         return fused_mc_pred_swar_field_ref(ref0, ref1, syf, sxf, phf, syb,
                                             sxb, phb, mode, fld_f, fld_b,
-                                            h=h, w=w, bidir=bidir)
+                                            h=h, w=w, bidir=bidir, H=H)
     return _launch("mp2v_mc_swar_field", "mc_swar_field", (ref0,), (ref1,),
                    (), (syf, sxf, phf, syb, sxb, phb, mode, *fld_f, *fld_b),
-                   h, w, bidir)[0]
+                   h, w, bidir, H)[0]

@@ -41,6 +41,7 @@ its upload has completed.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -224,15 +225,33 @@ class DeviceRecon:
             1: (vec((mb_y * 16) >> ys), vec((mb_x * 16) >> xs)),
         }
         self._zero_refs = None
+        self._transport = None
+
+    def _band_pos(self, comp, band):
+        """Per-MB top-left plane coordinates of component ``comp``.
+        ``band=None``: the whole picture.  ``band=(row0, mbh_local)``: the
+        ``mbh_local`` MB rows from MB row ``row0`` on; the positions stay
+        in whole-plane coordinates (the reference planes are whole), only
+        the tile grid is the band's."""
+        pos = self._pos[0 if comp == 0 else 1]
+        if band is None:
+            return pos
+        row0, mbh_l = band
+        n0, n = row0 * self.geom.mb_width, mbh_l * self.geom.mb_width
+        return pos[0][n0:n0 + n], pos[1][n0:n0 + n]
 
     def _recon_from_residual(self, residual, dct_type, fwd, bwd,
                              field_pred, coded, mv, mvfs,
                              r0y, r0u, r0v, r1y, r1u, r1v,
-                             bidir: bool = True):
+                             bidir: bool = True, band=None):
         """residual: (n_mb, blocks_per_mb, 8, 8) int16 blocks; mv:
         (n_mb, units, 2:dir, 2:xy) int16 with two units (and mvfs
         (n_mb, 2:unit, 2:dir)) under field support, else one; returns the
-        reconstructed (y, u, v) planes."""
+        reconstructed (y, u, v) planes.  ``band=(row0, mbh_local)``
+        reconstructs only those MB rows (the row-sharded path's band): the
+        residual and the per-MB vectors cover the band's MBs, the reference
+        planes stay whole (motion reaches anywhere in them), and the planes
+        returned are the band's rows."""
         cf = self.geom.chroma_format
         xs, ys, n_cb = CHROMA_INFO[cf]
         c_rows, c_cols = (16 >> ys) // 8, (16 >> xs) // 8
@@ -248,20 +267,23 @@ class DeviceRecon:
         }
         refs = {0: (r0y, r1y), 1: (r0u, r1u), 2: (r0v, r1v)}
         return self._planes(res, refs, fwd, bwd, field_pred, coded, mv,
-                            mvfs, bidir)
+                            mvfs, bidir, band)
 
     def _planes(self, res, refs, fwd, bwd, field_pred, coded, mv, mvfs,
-                bidir: bool = True):
+                bidir: bool = True, band=None):
         """Fused-kernel reconstruction: per component, the int16 residual in
         plane layout, then one launch for luma and one for U and V together
         (MC, bidir average, residual add, saturation and uncoded masking):
         K2 and K3, or K4 under field support; K5 and K6 under ``roll``.
         Under ``swar``, one prediction launch for the picture's three
         components (K7), or under field support one per component (K8), and
-        a plain PyTorch epilogue per component."""
+        a plain PyTorch epilogue per component.  ``band`` as
+        :meth:`_recon_from_residual`: the kernels' output (the residual
+        planes', or the SWAR kernels' ``H``) is the band's rows."""
         geom = self.geom
         xs, ys, _ = CHROMA_INFO[geom.chroma_format]
-        mbh, mbw = geom.mb_height, geom.mb_width
+        mbh = geom.mb_height if band is None else band[1]
+        mbw = geom.mb_width
         fs = self.field_support
         swar = self.mc_impl == "swar"
         mode = fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
@@ -284,23 +306,24 @@ class DeviceRecon:
             return out
 
         # window-start clamps are in full-reference coordinates
-        Hr, Wr = mbh * 16, mbw * 16
+        Hr, Wr = geom.mb_height * 16, mbw * 16
         ch, cw = 16 >> ys, 16 >> xs
         mvc = _scale_mv(mv, geom.chroma_format)
+        pos_y, pos_c = self._band_pos(0, band), self._band_pos(1, band)
         if swar:
             tiles = ((16, 16), (ch, cw), (ch, cw))
-            meta_y = meta(self._pos[0], mv, Hr, Wr, 16, 16)
-            meta_c = meta(self._pos[1], mvc, Hr >> ys, Wr >> xs, ch, cw)
+            meta_y = meta(pos_y, mv, Hr, Wr, 16, 16)
+            meta_c = meta(pos_c, mvc, Hr >> ys, Wr >> xs, ch, cw)
             if fs:
                 words = [self._mc_fns(refs[c][0], refs[c][1], *m, h=h, w=w,
-                                      bidir=bidir)
+                                      bidir=bidir, H=mbh * h)
                          for c, (m, (h, w)) in enumerate(zip(
                              (meta_y, meta_c, meta_c), tiles))]
             else:
                 words = self._mc_fns(
                     tuple(refs[c][0] for c in range(3)),
                     tuple(refs[c][1] for c in range(3)), meta_y[:6],
-                    meta_c[:6], mode, h=ch, w=cw, bidir=bidir)
+                    meta_c[:6], mode, h=ch, w=cw, bidir=bidir, H=mbh * 16)
 
             def epilogue(c, h, w):
                 H, W = mbh * h, mbw * w
@@ -318,15 +341,36 @@ class DeviceRecon:
         luma_fn, uv_fn = self._mc_fns
         luma = luma_fn(
             refs[0][0], refs[0][1], _plane_from_tiles(res[0], mbh, mbw, 16, 16),
-            *meta(self._pos[0], mv, Hr, Wr, 16, 16), h=16, w=16, bidir=bidir)
+            *meta(pos_y, mv, Hr, Wr, 16, 16), h=16, w=16, bidir=bidir)
         # chroma: U and V share the scaled MVs (planar, so no doubled sx)
         u, v = uv_fn(
             (refs[1][0], refs[2][0]), (refs[1][1], refs[2][1]),
             (_plane_from_tiles(res[1], mbh, mbw, ch, cw),
              _plane_from_tiles(res[2], mbh, mbw, ch, cw)),
-            *meta(self._pos[1], mvc, Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw,
+            *meta(pos_c, mvc, Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw,
             bidir=bidir)
         return luma, u, v
+
+    def __call__(self, tokens: PictureTokens, ref0=None, ref1=None):
+        """One picture (the JAX package's ``DeviceRecon.__call__``):
+        ``tokens`` reconstructed with forward prediction from ``ref0`` and
+        backward from ``ref1`` (``(y, u, v)`` tuples, zero planes when
+        ``None``), both directions' kernels.  The tokens travel as the
+        chunk path's blob, through a chunk-1 :class:`GopRecon` of this
+        recon's configuration; returns the padded (y, u, v) planes."""
+        if self._transport is None:
+            self._transport = GopRecon(self.geom, 1, self.device,
+                                       self.field_support, self.mc_impl,
+                                       use_cuda_mc=self.use_cuda_mc)
+        dense, meta, _ = self._transport.upload_decode(
+            self._transport.prepare([tokens], [3]), [self.device])[
+                self.device]
+        zero = self.zero_planes()
+        return self._recon_from_residual(
+            dense[0].view(self.geom.n_mb, self.geom.blocks_per_mb, 8, 8),
+            *_unpack_meta2(meta[0], self.field_support),
+            *(zero if ref0 is None else ref0),
+            *(zero if ref1 is None else ref1))
 
     def zero_planes(self):
         if self._zero_refs is None:
@@ -655,6 +699,33 @@ class GopRecon:
             self._seq_disp += 1
             self._cv.notify_all()
 
+    def upload_decode(self, staged, devices) -> dict:
+        """Upload a staged chunk (:meth:`upload`), release its slot, and
+        decode its blob (:meth:`_decode_blob`: one K1 launch) once on each
+        distinct device of ``devices``, the uploaded blob copied from this
+        recon's device to the others: a dict device -> ``(dense, meta,
+        step flags)``."""
+        (cap_pairs, cap_k), _, _ = staged
+        up = self._upload_released(staged)
+        out = {}
+        for dev in devices:
+            if dev not in out:
+                with on_device(dev):
+                    out[dev] = self._decode_blob(
+                        up.to(dev), cap_pairs=cap_pairs, cap_k=cap_k)
+        return out
+
+    def _upload_released(self, staged):
+        """:meth:`upload`, then :meth:`mark_dispatched`, which releases
+        the slot even when the upload failed: a fill thread waiting in
+        ``prepare`` would otherwise wait forever."""
+        guard = None
+        try:
+            up, guard = self.upload(staged)
+        finally:
+            self.mark_dispatched(staged, guard)
+        return up
+
     def dispatch(self, staged, ref0=None, ref1=None, bidir: bool = True):
         """Stage 2: upload the staged blob (:meth:`upload`), release its
         slot and reconstruct the chunk.  Must be called in chunk order (the
@@ -670,15 +741,19 @@ class GopRecon:
             ref0 = self.inner.zero_planes()
         if ref1 is None:
             ref1 = self.inner.zero_planes()
-        guard = None
-        try:
-            up, guard = self.upload(staged)
-        finally:
-            # released even when the upload failed: a fill thread waiting
-            # in prepare() would otherwise wait forever
-            self.mark_dispatched(staged, guard)
+        up = self._upload_released(staged)
         return self._gop(up, tuple(ref0), tuple(ref1), cap_pairs=cap_pairs,
                          cap_k=cap_k, step_flags=step_flags, bidir=bidir)
+
+
+def on_device(dev):
+    """A context in which ``dev``'s kernels launch: a CUDA device made
+    current (the kernels launch on the current device's stream), or for the
+    CPU nothing."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 class _Slot:

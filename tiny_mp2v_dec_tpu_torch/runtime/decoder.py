@@ -18,13 +18,21 @@ routes and delivers its frames (the renderer runs there).  At most two
 chunks are in flight; a worker's exception is raised from ``decode`` or
 ``flush``.  The latency path (``gop_chunk=0``) runs every step on the
 caller's thread.
+
+Two multi-device paths run on the caller's thread too, as in the JAX
+package: ``mesh="rows"`` reconstructs each picture in bands of MB rows
+(:class:`~..parallel.mesh.RowShardedRecon`), and
+:meth:`MP2VDecoder.decode_batch` decodes several streams, a picture of
+each per step (:class:`~..parallel.mesh.StreamBatchRecon`).  Their frames
+are :class:`PlanesFrame` objects.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor, wait
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -32,8 +40,10 @@ import torch
 
 from .. import headers as H
 from ..ops.recon import GopRecon, resolve_mc_impl
+from ..parallel.mesh import RowShardedRecon, StreamBatchRecon, make_mesh
 from ..tokenizer import get_tokenizer
-from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureParams
+from ..tokenizer.types import (CHROMA_INFO, PictureGeometry, PictureParams,
+                               PictureTokens)
 
 
 def scan_start_codes(data: bytes) -> np.ndarray:
@@ -67,10 +77,17 @@ class DecoderConfig:
     # pulled to host only on attribute access)
     output_host: bool = True
     # JAX-only options, kept so configurations carry over; the port has no
-    # Pallas path and no mesh, and refuses them
+    # Pallas path and refuses them
     use_pallas: Optional[bool] = None
     pallas_interpret: bool = False
+    # "rows": reconstruct each picture in mesh_devices bands of MB rows
+    # (RowShardedRecon; it takes precedence over gop_chunk)
     mesh: Optional[str] = None
+    # devices of the row mesh and of decode_batch's stream shards (0 = the
+    # visible devices of the decoder's type); more than there are repeat
+    # them (parallel.mesh.make_mesh).  A row count that does not divide
+    # mb_height pads the geometry, and windows then clamp to the padded
+    # height, as in the JAX mesh (ROADMAP Queue 3)
     mesh_devices: int = 0
     # "raise": abort on the first malformed slice; "drop_slice": keep the
     # bad slice's parsed prefix, decode everything else, count the drops in
@@ -81,9 +98,10 @@ class DecoderConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("mesh: multi-device decode is not "
-                                      "ported yet")
+        if self.mesh not in (None, "rows"):
+            raise ValueError(f"mesh={self.mesh!r}: None or 'rows'")
+        if self.mesh_devices < 0:
+            raise ValueError(f"mesh_devices={self.mesh_devices}")
         if self.use_pallas not in (None, False) or self.pallas_interpret:
             raise NotImplementedError("use_pallas / pallas_interpret select "
                                       "the JAX package's Pallas kernels")
@@ -112,6 +130,21 @@ class ChunkHost:
             else:
                 self._array = self._packed.cpu().numpy()
         return self._array
+
+
+def host_copy(t: torch.Tensor) -> ChunkHost:
+    """A :class:`ChunkHost` of ``t``: on ``cuda`` its copy to pinned host
+    memory is queued now, behind the kernels that write ``t``; on the CPU
+    the first read takes the tensor."""
+    if not t.is_cuda:
+        return ChunkHost(t)
+    # the caching host allocator reuses this block only after the copy
+    # recorded on it has completed
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return ChunkHost(t, pinned, copied)
 
 
 class LazyFrame:
@@ -166,6 +199,63 @@ class LazyFrame:
         return self._flat().tobytes()
 
 
+class PlanesFrame:
+    """A decoded frame backed by its padded ``(y, u, v)`` device planes,
+    as the multi-device paths deliver it (the JAX package's
+    ``PlanesFrame``).  Read on the host on first plane access: through
+    ``shared``, a stream batch step's :class:`ChunkHost` per plane of its
+    stacked planes, row ``index``; or, without, by pulling the planes."""
+
+    def __init__(self, planes, geom: PictureGeometry,
+                 temporal_reference: int, picture_coding_type: int,
+                 shared=None, index: int = 0):
+        self._planes = planes
+        self._geom = geom
+        self._shared = shared
+        self._index = index
+        self._host = None
+        self.event = None
+        self.temporal_reference = temporal_reference
+        self.picture_coding_type = picture_coding_type
+
+    def device_buffer(self):
+        return self._planes
+
+    def _fetch(self):
+        if self._host is None:
+            if self._shared is not None:
+                self._host = tuple(h.array()[self._index]
+                                   for h in self._shared)
+            else:
+                self._host = tuple(p.cpu().numpy() for p in self._planes)
+        return self._host
+
+    _flat = _fetch  # what MP2VDecoder._drain reads
+
+    @property
+    def y(self):
+        g = self._geom
+        return self._fetch()[0][:g.height, :g.width]
+
+    def _chroma(self, i):
+        g = self._geom
+        xs, ys, _ = CHROMA_INFO[g.chroma_format]
+        cw = (g.width + (1 << xs) - 1) >> xs
+        ch = (g.height + (1 << ys) - 1) >> ys
+        return self._fetch()[i][:ch, :cw]
+
+    @property
+    def u(self):
+        return self._chroma(1)
+
+    @property
+    def v(self):
+        return self._chroma(2)
+
+    def tobytes(self) -> bytes:
+        return self.y.tobytes() + self.u.tobytes() + self.v.tobytes()
+
+
 class MP2VDecoder:
     """Decode MPEG-2 elementary streams to YUV frames on a torch device.
 
@@ -190,6 +280,8 @@ class MP2VDecoder:
         self.tokenize_picture = get_tokenizer(self.config.num_threads,
                                               self.config.on_error)
         self._recons = {}
+        # the row-sharded and stream-batch recons
+        self._mesh_recons = {}
         # the fill and dispatch threads, made on the first chunk; they
         # live across reset()
         self._fill_pool = self._disp_pool = None
@@ -241,6 +333,30 @@ class MP2VDecoder:
                                          field_support, impl)
         return self._recons[key]
 
+    def _mesh_devices(self) -> list:
+        """The devices of a row mesh or of stream shards: ``mesh_devices``
+        of them, or every visible device of the decoder's type."""
+        return make_mesh(self.config.mesh_devices or None,
+                         device=self.device)
+
+    def _mesh_recon_for(self, geom: PictureGeometry,
+                        field_support: bool) -> RowShardedRecon:
+        impl = resolve_mc_impl(None, field_support)
+        key = ("rows", geom, field_support, impl)
+        if key not in self._mesh_recons:
+            self._mesh_recons[key] = RowShardedRecon(
+                geom, self._mesh_devices(), field_support, impl)
+        return self._mesh_recons[key]
+
+    def _batch_recon_for(self, geom: PictureGeometry, field_support: bool,
+                         n_streams: int, devices: list) -> StreamBatchRecon:
+        impl = resolve_mc_impl(None, field_support)
+        key = ("streams", geom, field_support, n_streams, len(devices), impl)
+        if key not in self._mesh_recons:
+            self._mesh_recons[key] = StreamBatchRecon(
+                geom, devices, field_support, n_streams, impl)
+        return self._mesh_recons[key]
+
     def _emit(self, pending: LazyFrame) -> None:
         """Queue a decoded picture for delivery.  ``pictures_pool_size``
         bounds the undelivered pictures in flight — the back-pressure the
@@ -274,6 +390,118 @@ class MP2VDecoder:
         self._walk(data, self._decode_picture)
         self.flush()
         return self._frames
+
+    def decode_batch(self, streams: List[bytes]) -> List[list]:
+        """Decode independent streams together, a picture of each per
+        device step (:class:`~..parallel.mesh.StreamBatchRecon`): the
+        serving path.  Streams may differ in GOP structure and length
+        (each picture type is a host flag; a shorter stream is padded with
+        no-op pictures, all-uncoded B pictures that leave its references
+        alone) and in geometry (one batch per geometry, in the order of
+        first appearance).  Every stream is tokenized first, on at most
+        ``os.cpu_count()`` threads, each stream by a tokenizer-only shell
+        decoder whose fill and dispatch threads never start, with
+        ``num_threads`` (by default the CPUs shared out among the streams
+        tokenized at once).  Returns each stream's frames in display
+        order (decode order with ``reordering=False``)."""
+        if not streams:
+            raise ValueError("decode_batch: no streams")
+        cpus = os.cpu_count() or 1
+        workers = min(len(streams), cpus)
+        shell_cfg = replace(self.config, mesh=None, num_threads=(
+            self.config.num_threads or max(1, cpus // workers)))
+
+        def tokenize_one(data):
+            # header state is per stream: one shell decoder each
+            shell = MP2VDecoder(shell_cfg)
+            return shell.tokenize_stream(data), shell.stats
+
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix="mp2v-tokenize") as ex:
+            done = list(ex.map(tokenize_one, streams))
+        seqs = [q for q, _ in done]
+        for _, st in done:
+            for k in ("pictures", "tokenize_s", "bad_slices"):
+                self.stats[k] += st[k]
+        by_geom: dict = {}
+        for i, q in enumerate(seqs):
+            if not q:
+                raise ValueError(f"decode_batch: stream {i} has no pictures")
+            by_geom.setdefault(q[0][1], []).append(i)
+        out: List[list] = [[] for _ in streams]
+        for geom, idxs in by_geom.items():
+            for i, frames in zip(idxs, self._decode_batch_group(
+                    geom, [seqs[i] for i in idxs])):
+                out[i] = frames
+        return out
+
+    def _decode_batch_group(self, geom: PictureGeometry, seqs) -> list:
+        """One geometry's streams, a picture of each per step.  The
+        streams split into ``min(S, devices)`` shards; where S does not
+        divide, no-op streams pad the batch (the JAX package takes the
+        largest divisor of S instead).  With host output each step's
+        planes start their copy to the host as soon as its kernels are
+        queued, and are read one step later."""
+        field = any(bool(t.field_pred.any()) for q in seqs for t, _, _ in q)
+        S = len(seqs)
+        devices = self._mesh_devices()
+        n = min(S, len(devices))
+        n_pad = -(-S // n) * n
+        sb = self._batch_recon_for(geom, field, n_pad, devices[:n])
+        noop = PictureTokens.empty(geom)
+        refs0 = refs1 = None
+        out: List[list] = [[] for _ in range(S)]
+        reorder: List[Optional[PlanesFrame]] = [None] * S
+        # frames emitted and, with host output, not read yet
+        emitted: List[PlanesFrame] = []
+
+        def emit(i, frame):
+            out[i].append(frame)
+            emitted.append(frame)
+
+        for step in range(max(len(q) for q in seqs)):
+            toks, phs = [], []
+            for i in range(n_pad):
+                if i < S and step < len(seqs[i]):
+                    t, _, ph = seqs[i][step]
+                    toks.append(t)
+                    phs.append(ph)
+                else:
+                    toks.append(noop)
+                    phs.append(None)
+            is_b = [ph is None or ph.picture_coding_type == H.PCT_B
+                    for ph in phs]
+            t0 = time.perf_counter()
+            refs0, refs1, planes = sb.step(toks, is_b, [not b for b in is_b],
+                                           refs0, refs1)
+            shared = (tuple(host_copy(p) for p in planes)
+                      if self.config.output_host else None)
+            self.stats["device_s"] += time.perf_counter() - t0
+            if self.config.output_host:
+                # earlier steps' frames, whose copies ran while this step
+                # was queued
+                for frame in emitted:
+                    frame._fetch()
+            emitted = []
+            for i, ph in enumerate(phs[:S]):
+                if ph is None:
+                    continue
+                frame = PlanesFrame(tuple(p[i] for p in planes), geom,
+                                    ph.temporal_reference,
+                                    ph.picture_coding_type, shared, i)
+                if not is_b[i] and self.config.reordering:
+                    if reorder[i] is not None:
+                        emit(i, reorder[i])
+                    reorder[i] = frame
+                else:
+                    emit(i, frame)
+        for i, frame in enumerate(reorder):
+            if frame is not None:
+                emit(i, frame)
+        if self.config.output_host:
+            for frame in emitted:
+                frame._fetch()
+        return out
 
     def _walk(self, data: bytes, on_picture) -> None:
         """Start-code dispatch loop (reference: decoder.cpp:278-329);
@@ -388,19 +616,12 @@ class MP2VDecoder:
             bidir=any(ph.picture_coding_type == H.PCT_B
                       for _, _, ph in batch))
         self._refs = [r0, r1]
-        event, host = None, ChunkHost(packs)
+        event = None
         if packs.is_cuda:
             event = torch.cuda.Event()
             event.record()
-            if self.config.output_host:
-                # the caching host allocator reuses this block only after
-                # the copy recorded on it has completed
-                pinned = torch.empty(packs.shape, dtype=packs.dtype,
-                                     pin_memory=True)
-                pinned.copy_(packs, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record()
-                host = ChunkHost(packs, pinned, copied)
+        host = host_copy(packs) if self.config.output_host else ChunkHost(
+            packs)
         self.stats["device_s"] += time.perf_counter() - t0
         self._routing_event = event
         for i, (_, _, ph) in enumerate(batch):
@@ -488,6 +709,9 @@ class MP2VDecoder:
 
     def _decode_picture(self, data: bytes, cur) -> None:
         tokens, geom, ph = self._picture_tokens(data, cur)
+        if self.config.mesh == "rows":
+            self._decode_picture_mesh(tokens, geom, ph)
+            return
         if self.config.gop_chunk > 0:
             if self._chunk and self._chunk[0][1] != geom:
                 self._flush_chunk()
@@ -500,3 +724,22 @@ class MP2VDecoder:
         batch = [(tokens, geom, ph)]
         recon = self._recon_of(batch)
         self._dispatch_chunk(recon, self._fill_job(recon, batch), batch)
+
+    def _decode_picture_mesh(self, tokens, geom: PictureGeometry,
+                             ph: H.PictureHeader) -> None:
+        """Row-sharded reconstruction of one picture on the caller's
+        thread: its MB rows in bands across the mesh, the joined planes the
+        next picture's references.  A picture with field-predicted MBs
+        takes the field recon."""
+        t0 = time.perf_counter()
+        recon = self._mesh_recon_for(geom, bool(tokens.field_pred.any()))
+        pct = ph.picture_coding_type
+        ip = pct in (H.PCT_I, H.PCT_P)
+        ref0, ref1 = (self._refs[1], None) if ip else self._refs
+        planes = recon(tokens, ref0, ref1)
+        if ip:
+            self._refs = [self._refs[1], planes]
+        self.stats["device_s"] += time.perf_counter() - t0
+        self._route_frame(PlanesFrame(planes, geom, ph.temporal_reference,
+                                      pct), pct)
+        self._drain(keep_last=True)

@@ -1,5 +1,5 @@
 """Kernel performance gate on a CUDA card: the port's counterpart of the
-JAX package's ``tools/perf_gate.py``, gates 1 and 2.
+JAX package's ``tools/perf_gate.py``, gates 1, 2 and 3.
 
     python -m tiny_mp2v_dec_tpu_torch.tools.perf_gate
 
@@ -16,12 +16,16 @@ JAX package's ``tools/perf_gate.py``, gates 1 and 2.
   ended by a synchronize (``tbench.step_ms``): the host's glue bounds the
   step, so its device time alone would leave out what a user waits for.
   The kernels' step must be at least as fast (1.0x).
-* Gate 3 of the JAX gate (the serving path, ``StreamBatchRecon``) is not
-  ported (ROADMAP M8): the record says so and does not count it as a
-  pass.
+* Gate 3: the serving step — ``StreamBatchRecon.dispatch`` of 2 streams
+  on the card, the first 2 pictures of the same stream as their pictures,
+  B-coded from zero references (the JAX gate's step): upload, one K1, each
+  stream's MC — with the hand kernels against their plain versions, timed
+  as gate 2 (``tbench.step_ms``) for the same reason.  The kernels' step
+  must be at least as fast (1.0x; the JAX gate's 2x held Pallas against an
+  XLA gather formulation, which the port does not have).
 
 Each gate also checks that kernels and plain versions give equal outputs.
-Prints one JSON record and writes no file.  Exits 0 when gates 1 and 2
+Prints one JSON record and writes no file.  Exits 0 when the three gates
 pass, 1 when one fails, 2 without a CUDA device.
 """
 from __future__ import annotations
@@ -38,12 +42,14 @@ from ..ops.mc import mc_bidir_tiles, mc_unidir_tiles, pad_for_mc
 from ..ops.mc_fused import fused_mc_recon, mc_meta
 from ..ops.mc_rows import plane_of_tiles
 from ..ops.recon import GopRecon
+from ..parallel.mesh import StreamBatchRecon
 from ..runtime.decoder import DecoderConfig, MP2VDecoder
 
 STREAM = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "data", "bench_1080p_420_16.m2v")
-MC_GATE, CHUNK_GATE = 1.25, 1.0
-SERVE = "not ported (StreamBatchRecon, ROADMAP M8)"
+MC_GATE, CHUNK_GATE, SERVE_GATE = 1.25, 1.0, 1.0
+# streams of gate 3's step
+SERVE_STREAMS = 2
 
 
 def mc_gate_inputs(H: int = 1088, W: int = 1920, seed: int = 0,
@@ -105,6 +111,28 @@ def chunk_steps(data: bytes, device, mc_impl: str = "mxu") -> dict:
     return steps
 
 
+def serve_steps(data: bytes, device, n_streams: int = SERVE_STREAMS,
+                mc_impl: str = "mxu") -> dict:
+    """Gate 3's two serving steps: ``{"kernel": fn, "plain": fn}``, each
+    ``fn()`` dispatching the same staged step of a ``StreamBatchRecon`` of
+    ``n_streams`` streams on ``device`` — the first ``n_streams`` pictures
+    of ``data``, one a stream, B-coded from zero references — and
+    returning ``(refs0, refs1, planes)``."""
+    seq = MP2VDecoder(DecoderConfig(device=str(device))).tokenize_stream(data)
+    geom = seq[0][1]
+    toks = [t for t, _, _ in seq[:n_streams]]
+    field = any(bool(t.field_pred.any()) for t in toks)
+    is_b, is_ip = [True] * n_streams, [False] * n_streams
+    steps = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        sb = StreamBatchRecon(geom, [device], field, n_streams, mc_impl,
+                              use_cuda_idct=use, use_cuda_mc=use)
+        staged = sb.transport.prepare(toks, [3] * n_streams)
+        steps[name] = lambda sb=sb, staged=staged: sb.dispatch(
+            staged, is_b, is_ip)
+    return steps
+
+
 def _equal(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return bool(torch.equal(a, b))
@@ -112,7 +140,7 @@ def _equal(a, b) -> bool:
 
 
 def run_gates() -> dict:
-    """Gates 1 and 2 on the current CUDA device: the JSON record."""
+    """Gates 1, 2 and 3 on the current CUDA device: the JSON record."""
     from .tbench import card, cuda_ms, step_ms
     rec = {"card": card(), "device": torch.cuda.get_device_name(0)}
     x = mc_gate_inputs(device="cuda")
@@ -123,16 +151,25 @@ def run_gates() -> dict:
     rec["speedup"] = rec["mc_gather_ms"] / rec["mc_kernel_ms"]
     rec["gate"] = MC_GATE
     with open(STREAM, "rb") as f:
-        steps = chunk_steps(f.read(), torch.device("cuda"))
+        data = f.read()
+    steps = chunk_steps(data, torch.device("cuda"))
     rec["chunk_equal"] = _equal(steps["kernel"](), steps["plain"]())
     rec["chunk_kernel_ms"] = step_ms(steps["kernel"])
     rec["chunk_plain_ms"] = step_ms(steps["plain"])
     rec["chunk_speedup"] = rec["chunk_plain_ms"] / rec["chunk_kernel_ms"]
     rec["chunk_gate"] = CHUNK_GATE
-    rec["serve"] = SERVE
+    serve = serve_steps(data, torch.device("cuda"))
+    rec["serve_streams"] = SERVE_STREAMS
+    rec["serve_equal"] = _equal(serve["kernel"](), serve["plain"]())
+    rec["serve_kernel_ms"] = step_ms(serve["kernel"])
+    rec["serve_plain_ms"] = step_ms(serve["plain"])
+    rec["serve_speedup"] = rec["serve_plain_ms"] / rec["serve_kernel_ms"]
+    rec["serve_gate"] = SERVE_GATE
     rec["pass"] = bool(rec["mc_equal"] and rec["chunk_equal"]
+                       and rec["serve_equal"]
                        and rec["speedup"] >= MC_GATE
-                       and rec["chunk_speedup"] >= CHUNK_GATE)
+                       and rec["chunk_speedup"] >= CHUNK_GATE
+                       and rec["serve_speedup"] >= SERVE_GATE)
     return rec
 
 
