@@ -92,10 +92,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whole-picture launch), then ``mesh="rows"`` in those 4 bands on the
    1080p 4:2:0 and the interlaced streams under ``mxu`` and ``swar``
    (:data:`ROWS`: K1 once a picture); each with warm frames/s.  Gate 3
-   (the serving step) is in phase 5's ``perf_gate`` record.
+   (the serving step) is in phase 5's ``perf_gate`` record;
+8. the multi-host paths on the card, each phase timed, each fixture four
+   times over as plain bytes (``data * 4``, every copy with its sequence
+   end code, which ``split_gops`` cuts into four closed chunks of 16
+   pictures; one decoder would stop at the first end code), every 16-frame
+   group to the fixture's JAX hash and the launches summed over the
+   processes exact (:data:`MULTI_CHUNK`): (a) ``MultiHostDecoder(n,
+   device="cuda", config_kwargs={"gop_chunk": 16})`` for n = 1 and 2 on
+   the 1080p 4:2:0 stream (:data:`HOST_RUNS`), each pool warmed first,
+   with warm frames/s, the efficiency ``T1 / (2 * T2)`` of
+   ``tools/bench_multihost.py`` (best decodes), the host's CPU count and
+   each worker's peak thread count, and the same with the frames dropped
+   in the workers instead of sent back through the pool's pipe
+   (:func:`_decode_only`), beside the time the pool takes to return one
+   chunk's bytes from a worker;
+   then the interlaced stream at n = 2;
+   (b) ``DistributedDecoder`` in :data:`RANKS` spawned ``gloo`` ranks on
+   the card (:func:`_rank_main`), whose ``merge_display_order`` gives the
+   four hashes, whose chunk indices are disjoint and cover the stream, and
+   whose grid has :data:`RANKS` hosts; (c) the CLI with ``--hosts 2`` on
+   the 16-picture 4:2:0 fixture, its file's sha256 the fixture's.
 
 The line before the last is the kernels' JSON record: per kernel its
-launches on its paths (the bench's hash decode among them), its error and
+launches on its paths (the bench's hash decode and the multi-host paths'
+workers and ranks among them), its error and
 device time against its plain version, and its bound (:func:`bound`);
 the line before it K2's and K3's one-MB times, K2's uncoded time, the
 all-mode-7 times and the empty kernel's; the last line is
@@ -108,12 +129,16 @@ import functools
 import hashlib
 import importlib.util
 import json
+import multiprocessing
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
@@ -190,6 +215,20 @@ ROWS = {
     ("interlaced_1080_422_16", "swar"): {
         "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }
+# phase 8: the multi-host paths, each fixture REPEAT times over as plain
+# bytes (four closed chunks), under mxu at gop_chunk=16: (fixture, worker
+# processes) of each MultiHostDecoder run, in order; the launches summed
+# over the workers (or ranks) are MULTI_CHUNK's
+HOST_RUNS = (("bench_1080p_420_16", 1), ("bench_1080p_420_16", 2),
+             ("interlaced_1080_422_16", 2))
+HOST_CONFIG = {"gop_chunk": 16}
+# warm decodes timed on each pool, each way (frames back, decode only)
+HOST_DECODES = 2
+# DistributedDecoder ranks (phase 8b), on the 1080p 4:2:0 stream, and the
+# seconds each may take to start, decode and report
+RANKS = 2
+RANK_STREAM = "bench_1080p_420_16"
+RANK_TIMEOUT = 240
 # seconds the bench (run short) and each CLI decode may take
 ENTRY_TIMEOUT = 300
 # every MC kernel's counter: the paths' and K7's one-component form, which
@@ -1166,6 +1205,271 @@ def serving_and_rows(torch, _build, MP2VDecoder, DecoderConfig) -> dict:
     return launches
 
 
+def _hold_groups(label, frames, want) -> None:
+    """Each :data:`REPEAT`-th of ``frames`` (YUV bytes) to the fixture's
+    hash (a ``memoryview`` has the ``tobytes`` of a decoded frame)."""
+    try:
+        digest = _fixtures().check_frames([memoryview(b) for b in frames],
+                                          want, REPEAT)
+    except ValueError as e:
+        fail(f"{label}: {e}")
+    print(f"{label}: {len(frames)} frames, each of the {REPEAT} groups the "
+          f"JAX package's YUV sha256; sha256 of all {digest}")
+
+
+def _sample_threads(pids, stop, peaks) -> None:
+    """The largest ``Threads:`` count of each process in ``pids`` (from
+    ``/proc``) until ``stop`` is set."""
+    while not stop.is_set():
+        for pid in pids:
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    for line in f:
+                        if line.startswith("Threads:"):
+                            peaks[pid] = max(peaks.get(pid, 0),
+                                             int(line.split()[1]))
+            except OSError:
+                pass
+        time.sleep(0.001)
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _decode_only(payload) -> tuple:
+    """Phase 8 (a)'s decode-only reading, run in a pool worker:
+    ``hosts._worker_decode`` with the frames dropped there instead of sent
+    back through the pool's pipe.  Returns (index, YUV bytes, launches,
+    seconds in the worker)."""
+    from tiny_mp2v_dec_tpu_torch.parallel import hosts
+    t0 = time.perf_counter()
+    idx, frames, launches = hosts._worker_decode(payload)
+    return idx, sum(map(len, frames)), launches, time.perf_counter() - t0
+
+
+def hosts_path(mh, name, n, expected) -> tuple:
+    """Phase 8 (a): the fixture ``name`` :data:`REPEAT` times over as plain
+    bytes through the pool ``mh`` of ``n`` workers: warmed, then a decode
+    with the launch counts reset just before and read just after, held to
+    the hashes and to ``expected``, then :data:`HOST_DECODES` - 1 more, all
+    timed; then :data:`HOST_DECODES` decode-only runs of the same chunks
+    (:func:`_decode_only`), timed, every byte count checked; the workers'
+    peak thread counts sampled during the runs after the first; last, the
+    seconds the pool takes to return one chunk's YUV bytes from a worker
+    (``bytes(n)`` run there), best of 2.  Returns (launches, best seconds,
+    best decode-only seconds)."""
+    from tiny_mp2v_dec_tpu_torch.parallel.hosts import split_gops
+    data, want = _fixtures().load(name)
+    data = data * REPEAT
+    label = f"MultiHostDecoder({n}) {os.path.basename(name)} x{REPEAT}"
+    t0 = time.perf_counter()
+    mh.warmup(data)
+    t1 = time.perf_counter()
+    mh.launches.clear()
+    frames = mh.decode(data)
+    walls = [time.perf_counter() - t1]
+    launches = dict(mh.launches)
+    print(f"{label}: warmup {t1 - t0:.2f} s; workers' launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    _hold_groups(label, frames, want)
+    if launches != expected:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    n_frames = len(frames)
+    del frames
+    payloads = [(c.index, c.data, mh.config_kwargs) for c in split_gops(data)]
+    pids = [p.pid for p in multiprocessing.active_children()]
+    peaks, stop = {}, threading.Event()
+    sampler = threading.Thread(target=_sample_threads,
+                               args=(pids, stop, peaks))
+    sampler.start()
+    only, in_worker = [], []
+    try:
+        for _ in range(HOST_DECODES - 1):
+            t0 = time.perf_counter()
+            mh.decode(data)
+            walls.append(time.perf_counter() - t0)
+        for _ in range(HOST_DECODES):
+            t0 = time.perf_counter()
+            res = list(mh._pool.map(_decode_only, payloads))
+            only.append(time.perf_counter() - t0)
+            in_worker.append(sum(r[3] for r in res))
+            if sum(r[1] for r in res) != want["yuv_bytes"] * REPEAT:
+                fail(f"{label}: decode-only runs gave "
+                     f"{sum(r[1] for r in res)} YUV bytes")
+    finally:
+        stop.set()
+        sampler.join()
+    chunk_bytes = want["yuv_bytes"]
+    back = min(_timed(lambda: mh._pool.submit(bytes, chunk_bytes).result())
+               for _ in range(2))
+    best, med = min(walls), statistics.median(walls)
+    print(f"{label} warm: best {best:.4f} s = {n_frames / best:.2f} "
+          f"frames/s, median {med:.4f} s = {n_frames / med:.2f} frames/s "
+          f"over {HOST_DECODES} decodes; decode only (frames dropped in "
+          f"the workers): best {min(only):.4f} s = "
+          f"{n_frames / min(only):.2f} frames/s, the workers' decodes "
+          f"summed {min(in_worker):.4f} s; peak threads per worker "
+          f"{sorted(peaks.values())} on {os.cpu_count()} CPUs; the pool "
+          f"returns one chunk's {chunk_bytes} bytes from a worker in "
+          f"{back:.4f} s = {chunk_bytes / back / 1e6:.1f} MB/s")
+    return launches, best, min(only)
+
+
+def _rank_main(rank: int, world: int, port: int, name: str, device: str,
+               q) -> None:
+    """Phase 8 (b): one rank of a ``gloo`` world on ``device``: join it,
+    build the ('host', 'chip') grid, decode this rank's chunks of the
+    fixture ``name`` :data:`REPEAT` times over with ``DistributedDecoder``
+    (``gop_chunk=16``) and put ``(rank, record)`` on ``q``: its grid shape,
+    chunk indices, results, launches and seconds, or the error."""
+    try:
+        import torch
+        import torch.distributed as dist
+        from tiny_mp2v_dec_tpu_torch import DecoderConfig
+        from tiny_mp2v_dec_tpu_torch.ops import _build
+        from tiny_mp2v_dec_tpu_torch.parallel.distributed import (
+            DistributedDecoder, host_chip_mesh, init_distributed)
+        t0 = time.perf_counter()
+        init_distributed(f"127.0.0.1:{port}", world, rank)
+        shape = host_chip_mesh(device=device).shape
+        data = _fixtures().load(name)[0] * REPEAT
+        dd = DistributedDecoder(DecoderConfig(**HOST_CONFIG, device=device))
+        _build.LAUNCHES.clear()
+        t1 = time.perf_counter()
+        results = dd.decode(data)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        q.put((rank, {"shape": shape,
+                      "indices": [c.index for c in dd.my_chunks(data)],
+                      "results": results, "launches": dict(_build.LAUNCHES),
+                      "setup_s": t1 - t0, "decode_s": t2 - t1}))
+        dist.destroy_process_group()
+    except Exception:  # the parent reports it and fails the run
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def ranks_path(name: str, expected: dict, device: str = "cuda") -> dict:
+    """Phase 8 (b): :data:`RANKS` spawned ranks (:func:`_rank_main`) on the
+    fixture ``name``, each joined with a timeout.  Holds their merged
+    frames to the fixture's hashes, their chunks to a disjoint cover of the
+    stream, their grid to :data:`RANKS` hosts and their summed launches to
+    ``expected``.  Returns the summed launches."""
+    from tiny_mp2v_dec_tpu_torch.parallel.distributed import (
+        merge_display_order)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, RANKS, port, name, device, q))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    recs = {}
+    try:
+        for _ in range(RANKS):
+            try:
+                rank, rec = q.get(timeout=RANK_TIMEOUT)
+            except Exception:
+                fail(f"DistributedDecoder: a rank sent nothing in "
+                     f"{RANK_TIMEOUT} s (ranks in {sorted(recs)})")
+            if "error" in rec:
+                fail(f"DistributedDecoder rank {rank}: {rec['error']}")
+            recs[rank] = rec
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        fail(f"DistributedDecoder: ranks exited {bad}")
+    label = (f"DistributedDecoder {RANKS} ranks (gloo) "
+             f"{os.path.basename(name)} x{REPEAT}")
+    idxs = sorted(i for rec in recs.values() for i in rec["indices"])
+    if idxs != list(range(REPEAT)) or any(
+            [i for i, _ in rec["results"]] != rec["indices"]
+            for rec in recs.values()):
+        fail(f"{label}: chunks {[r['indices'] for r in recs.values()]}")
+    if any(rec["shape"].get("host") != RANKS for rec in recs.values()):
+        fail(f"{label}: grids {[r['shape'] for r in recs.values()]}")
+    launches = {}
+    for rec in recs.values():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for rank, rec in sorted(recs.items()):
+        print(f"{label} rank {rank}: grid {rec['shape']}, chunks "
+              f"{rec['indices']}, join + grid + decoder "
+              f"{rec['setup_s']:.2f} s, decode {rec['decode_s']:.2f} s "
+              f"(first use), launches "
+              f"{json.dumps(rec['launches'], sort_keys=True)}")
+    _, want = _fixtures().load(name)
+    _hold_groups(label, merge_display_order(
+        [recs[r]["results"] for r in sorted(recs)]), want)
+    if launches != expected:
+        fail(f"{label}: summed launches {launches}, expected {expected}")
+    return launches
+
+
+def multihost_paths(card: str) -> dict:
+    """Phase 8: (a) :data:`HOST_RUNS` through ``MultiHostDecoder`` with the
+    efficiency ``T1 / (2 * T2)``, (b) :func:`ranks_path`, (c) the CLI with
+    ``--hosts 2``.  Returns the workers' and ranks' launches."""
+    from tiny_mp2v_dec_tpu_torch.parallel.hosts import MultiHostDecoder
+    # the workers and ranks read it when their decoders are built
+    os.environ["MP2V_MC_IMPL"] = "mxu"
+    launches, best, only = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    for n in sorted({n for _, n in HOST_RUNS}):
+        ts = time.perf_counter()
+        with MultiHostDecoder(n, device="cuda",
+                              config_kwargs=HOST_CONFIG) as mh:
+            for name, _ in (r for r in HOST_RUNS if r[1] == n):
+                counts, best[name, n], only[name, n] = hosts_path(
+                    mh, name, n, MULTI_CHUNK[name])
+                add(counts)
+        print(f"MultiHostDecoder({n}): {time.perf_counter() - ts:.1f} s "
+              f"from the pool's start to its close")
+    for what, t in (("", best), (" decode only", only)):
+        t1_s, t2_s = t[RANK_STREAM, 1], t[RANK_STREAM, 2]
+        print(f"multi-host efficiency{what} T1 / (2 * T2) on {RANK_STREAM} "
+              f"x{REPEAT}: {t1_s:.4f} / (2 * {t2_s:.4f}) = "
+              f"{t1_s / (2 * t2_s):.3f} (best of {HOST_DECODES}); host "
+              f"{os.cpu_count()} CPUs; {card}")
+
+    t1 = time.perf_counter()
+    add(ranks_path(RANK_STREAM, MULTI_CHUNK[RANK_STREAM]))
+    t2 = time.perf_counter()
+    name = RANK_STREAM
+    _, want = _fixtures().load(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, f"{name}_hosts.yuv")
+        proc = entry_point(["cli", "-v", os.path.join(DATA, name + ".m2v"),
+                            "-o", out, "--hosts", "2"], "cli --hosts 2")
+        with open(out, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    print(f"cli --hosts 2: {proc.stdout.strip().splitlines()[0]}; YUV "
+          f"sha256 {digest}")
+    if digest != want["yuv_sha256"]:
+        fail(f"cli --hosts 2: YUV sha256 {digest} != JAX reference "
+             f"{want['yuv_sha256']}")
+    t3 = time.perf_counter()
+    print(f"multi-host phases: MultiHostDecoder {t1 - t0:.1f} s, "
+          f"DistributedDecoder {t2 - t1:.1f} s, CLI --hosts {t3 - t2:.1f} s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1283,6 +1587,9 @@ def main() -> int:
 
     # 7) the serving and row-sharded paths
     add(serving_and_rows(torch, _build, MP2VDecoder, DecoderConfig))
+
+    # 8) the multi-host paths: worker processes, ranks, the CLI
+    add(multihost_paths(card))
 
     csrc = "tiny_mp2v_dec_tpu_torch/csrc/"
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"

@@ -1,13 +1,16 @@
 """PyTorch port, the command-line entry points on the CPU: the CLI
 (``tiny_mp2v_dec_tpu_torch.cli``) against the JAX package's CLI with the
-same arguments, byte for byte (``--mesh rows`` too), the flags it
-refuses, and the bench
+same arguments, byte for byte (``--mesh rows``, ``--golden`` and
+``--hosts`` too), the device it refuses on a host without a GPU, and the
+bench
 (``tiny_mp2v_dec_tpu_torch.bench``): its result line, its hash check and
 that it writes no file."""
 import builtins
 import hashlib
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -87,26 +90,33 @@ def test_cli_bench_prints_both_lines(streams, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--golden"], ["--mesh", "rows"],
-                                   ["--hosts", "2"]],
-                         ids=["golden", "mesh", "hosts"])
-def test_cli_refuses_what_is_not_ported(streams, tmp_path, capsys, flags):
-    """``--golden`` and ``--hosts`` are refused, naming their ROADMAP item;
-    ``--mesh rows``, refused until row sharding was ported, writes the JAX
-    CLI's bytes."""
+                                   ["--hosts", "2"],
+                                   ["--hosts", "2", "--device", "cuda"]],
+                         ids=["golden", "mesh", "hosts", "hosts-cuda"])
+def test_cli_refuses_what_is_not_ported(streams, tmp_path, flags):
+    """``--golden``, ``--mesh rows`` and ``--hosts 2``, each refused until
+    its module was ported, write the JAX CLI's bytes with the same flags
+    (``--device cpu`` on the port); ``--hosts 2 --device cuda`` on a host
+    with no CUDA device visible exits non-zero from its workers and writes
+    no file."""
     out = tmp_path / "out.yuv"
-    if flags[0] == "--mesh":
-        want = tmp_path / "jax.yuv"
-        assert jax_cli(["-v", streams["clean"], "-o", str(want),
-                        *flags]) == 0
-        assert port_cli(["-v", streams["clean"], "-o", str(out), *flags,
-                         "--device", "cpu"]) == 0
-        assert out.read_bytes() == want.read_bytes()
+    if flags[-1] == "cuda":
+        proc = subprocess.run(
+            [sys.executable, "-m", "tiny_mp2v_dec_tpu_torch.cli", "-v",
+             streams["clean"], "-o", str(out), *flags],
+            cwd=REPO, capture_output=True, text=True, timeout=300,
+            env={**{k: v for k, v in os.environ.items()
+                    if k != "PYTHONPATH"}, "CUDA_VISIBLE_DEVICES": ""})
+        assert proc.returncode != 0
+        assert "no CUDA device" in proc.stderr
+        assert not out.exists()
         return
+    want = tmp_path / "jax.yuv"
+    assert jax_cli(["-v", streams["clean"], "-o", str(want), *flags]) == 0
     assert port_cli(["-v", streams["clean"], "-o", str(out), *flags,
-                     "--device", "cpu"]) != 0
-    assert not out.exists()
-    err = capsys.readouterr().err
-    assert flags[0] in err and "ROADMAP Queue 1, item" in err
+                     "--device", "cpu"]) == 0
+    assert out.read_bytes() == want.read_bytes()
+    assert len(want.read_bytes()) == 3 * 48 * 32 * 3 // 2
 
 
 @pytest.fixture(scope="module")

@@ -12,8 +12,9 @@ first pass and reports frames/s, the window ended by a synchronize.  The
 decode runs on the card (``--device cuda``, the default, which raises
 without one); ``--device cpu`` runs the kernels' plain PyTorch versions.
 ``--mesh rows`` reconstructs each picture in bands of MB rows, one band
-per visible device.  ``--golden`` and ``--hosts`` select parts of the JAX
-package that the port does not have yet; each is refused.
+per visible device.  ``--golden`` decodes with the numpy golden model on
+the host (``--device`` does not apply to it).  ``--hosts N`` distributes
+closed GOPs over N worker processes, each decoding on ``--device``.
 """
 from __future__ import annotations
 
@@ -24,14 +25,6 @@ import time
 import torch
 
 from .runtime.decoder import DecoderConfig, MP2VDecoder
-
-# flag -> why the port refuses it
-NOT_PORTED = {
-    "golden": "--golden needs the port's golden model, which is not ported "
-              "yet (ROADMAP Queue 1, item 3)",
-    "hosts": "--hosts needs the multi-host decoder, which is not ported yet "
-             "(ROADMAP Queue 1, item 5)",
-}
 
 
 def main(argv=None) -> int:
@@ -46,7 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bench", type=int, default=0, metavar="N",
                     help="benchmark: decode N times after warm-up, print fps")
     ap.add_argument("--golden", action="store_true",
-                    help="use the numpy golden decoder (not ported: refused)")
+                    help="use the numpy golden decoder (on the host)")
     ap.add_argument("--size", metavar="WxH",
                     help="override coded size from the sequence header")
     ap.add_argument("--chroma", choices=["420", "422", "444"],
@@ -58,8 +51,7 @@ def main(argv=None) -> int:
                     help="shard each picture's MB rows across local "
                          "devices")
     ap.add_argument("--hosts", type=int, default=0, metavar="N",
-                    help="distribute closed GOPs over N worker processes "
-                         "(not ported: refused)")
+                    help="distribute closed GOPs over N worker processes")
     ap.add_argument("--on-error", choices=["raise", "drop_slice"],
                     default="raise",
                     help="malformed-slice policy: abort (default) or "
@@ -70,12 +62,6 @@ def main(argv=None) -> int:
                          "runs the kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    refused = [msg for flag, msg in NOT_PORTED.items() if getattr(args, flag)]
-    if refused:
-        for msg in refused:
-            print(f"tiny_mp2v_dec_tpu_torch: {msg}", file=sys.stderr)
-        return 2
-
     with open(args.video, "rb") as f:
         data = f.read()
 
@@ -84,18 +70,50 @@ def main(argv=None) -> int:
         w, h = (int(x) for x in args.size.lower().split("x"))
     chroma = {None: 0, "420": 1, "422": 2, "444": 3}[args.chroma]
 
-    dec = MP2VDecoder(DecoderConfig(
-        reordering=not args.no_reorder, width=w, height=h,
-        chroma_format=chroma, gop_chunk=args.gop_chunk, mesh=args.mesh,
-        on_error=args.on_error, device=args.device))
+    mh = None
+    if args.hosts:
+        from .parallel.hosts import MultiHostDecoder
+        mh = MultiHostDecoder(args.hosts, device=args.device,
+                              config_kwargs=dict(
+                                  reordering=not args.no_reorder, width=w,
+                                  height=h, chroma_format=chroma,
+                                  gop_chunk=args.gop_chunk,
+                                  on_error=args.on_error))
 
-    def decode():
-        dec.reset()
-        frames = dec.decode(data)
-        if dec.device.type == "cuda":
-            torch.cuda.synchronize()
-        return frames
+        class _F:  # minimal frame shim: MultiHostDecoder returns raw bytes
+            def __init__(self, b):
+                self._b = b
 
+            def tobytes(self):
+                return self._b
+
+        decode = lambda: [_F(b) for b in mh.decode(data)]
+    elif args.golden:
+        from .golden.decoder import decode_stream
+        decode = lambda: decode_stream(data, reordering=not args.no_reorder)
+    else:
+        dec = MP2VDecoder(DecoderConfig(
+            reordering=not args.no_reorder, width=w, height=h,
+            chroma_format=chroma, gop_chunk=args.gop_chunk, mesh=args.mesh,
+            on_error=args.on_error, device=args.device))
+
+        def decode():
+            dec.reset()
+            frames = dec.decode(data)
+            if dec.device.type == "cuda":
+                torch.cuda.synchronize()
+            return frames
+
+    try:
+        return _run(args, decode)
+    finally:
+        if mh is not None:
+            mh.close()
+
+
+def _run(args, decode) -> int:
+    """Time the first decode (and ``--bench`` more), then write the
+    output file."""
     t0 = time.perf_counter()
     frames = decode()
     dt = time.perf_counter() - t0

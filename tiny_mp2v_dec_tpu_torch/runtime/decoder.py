@@ -39,21 +39,12 @@ import numpy as np
 import torch
 
 from .. import headers as H
+from ..golden.decoder import scan_start_codes
 from ..ops.recon import GopRecon, resolve_mc_impl
 from ..parallel.mesh import RowShardedRecon, StreamBatchRecon, make_mesh
 from ..tokenizer import get_tokenizer
 from ..tokenizer.types import (CHROMA_INFO, PictureGeometry, PictureParams,
                                PictureTokens)
-
-
-def scan_start_codes(data: bytes) -> np.ndarray:
-    """Byte offsets of every 00 00 01 prefix (vectorized equivalent of the
-    reference's SIMD scanner, src/core/start_codes_search.hpp:7-39)."""
-    b = np.frombuffer(data, np.uint8)
-    if len(b) < 4:
-        return np.empty(0, np.int64)
-    hits = (b[:-3] == 0) & (b[1:-2] == 0) & (b[2:-1] == 1)
-    return np.nonzero(hits)[0]
 
 
 @dataclass
