@@ -44,11 +44,13 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..headers import CHROMA_420
+from ..runtime.spans import Spans
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from .idct import idct_blocks, idct_blocks_ref
@@ -417,6 +419,13 @@ class GopRecon:
         self._cv = threading.Condition()
         self._seq_prep = 0
         self._seq_disp = 0
+        # the spans prepare and dispatch record: a decoder hands its own
+        # in; this one never records
+        self.spans = Spans()
+        # nanoseconds the last prepare waited for its staging slot: for a
+        # free slot, then for the slot's last upload (the first use of a
+        # blob shape also makes its slot)
+        self.slot_wait_ns = 0
 
     def _layout(self, cap_pairs: int, cap_k: int):
         """Byte offsets of the seven sections inside the blob (each 4-byte
@@ -568,12 +577,14 @@ class GopRecon:
         return next(s for s in self._stage[cap_pairs, cap_k]
                     if s is not None and s.blob is blob)
 
-    def prepare(self, tokens_list, pct_list):
+    def prepare(self, tokens_list, pct_list, unit: int = 0):
         """Stage 1, host-only: pack nonzero (column, value) pairs + per-row
         counts + metadata into a staging slot.  Pairs are globally sorted:
         sparse rows are numbered in claim order per picture, pictures in
         chunk order, each row walked column-major.  Returns the staged
         tuple ``((cap_pairs, cap_k), blob, t)`` for :meth:`dispatch`.
+        ``unit``: the chunk's number in the ``slot_wait`` spans it records
+        (:attr:`spans`); the wait itself is left in :attr:`slot_wait_ns`.
 
         Safe to call from a fill thread while another thread dispatches
         earlier chunks: calls are serialized by a lock, wait while
@@ -582,9 +593,9 @@ class GopRecon:
         A caller that uploads the blob itself releases the slot with
         :meth:`mark_dispatched`."""
         with self._call_lock:
-            return self._prepare_impl(tokens_list, pct_list)
+            return self._prepare_impl(tokens_list, pct_list, unit)
 
-    def _prepare_impl(self, tokens_list, pct_list):
+    def _prepare_impl(self, tokens_list, pct_list, unit):
         t = len(tokens_list)
         if not 0 < t <= self.chunk:
             raise ValueError(f"{t} pictures for a chunk of {self.chunk}")
@@ -614,6 +625,8 @@ class GopRecon:
                                         nnz[off:off + k])
             off += k
         cap_pairs = _ladder(total_nz + 1, lo=4096)
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         with self._cv:
             while self._seq_prep - self._seq_disp >= self.N_SLOTS - 1:
                 self._cv.wait()
@@ -624,6 +637,9 @@ class GopRecon:
             if slot.guard is not None:
                 slot.guard.synchronize()
                 slot.guard = None
+            t1 = time.time_ns()
+            self.spans.end(span, "slot_wait", unit, t1)
+            self.slot_wait_ns = t1 - t0
             self._fill(slot.blob, tokens_list, pct_list, cap_pairs, cap_k,
                        nnz[:off], total_nz)
         except BaseException:
@@ -726,14 +742,16 @@ class GopRecon:
             self.mark_dispatched(staged, guard)
         return up
 
-    def dispatch(self, staged, ref0=None, ref1=None, bidir: bool = True):
+    def dispatch(self, staged, ref0=None, ref1=None, bidir: bool = True,
+                 unit: int = 0):
         """Stage 2: upload the staged blob (:meth:`upload`), release its
         slot and reconstruct the chunk.  Must be called in chunk order (the
         reference planes carry over); returns (ref0, ref1, packed
         (t, frame_bytes) uint8).  ``bidir=False`` selects the forward-only
         kernels for every picture — only valid when no picture in the chunk
         is B-coded.  The same staged chunk may be dispatched again while
-        no later ``prepare`` has taken its slot."""
+        no later ``prepare`` has taken its slot.  ``unit``: the chunk's
+        number in the ``upload`` and ``recon`` spans it records."""
         (cap_pairs, cap_k), blob, t = staged
         o5 = self._layout(cap_pairs, cap_k)[5]
         step_flags = blob[o5:o5 + t].copy()
@@ -741,9 +759,14 @@ class GopRecon:
             ref0 = self.inner.zero_planes()
         if ref1 is None:
             ref1 = self.inner.zero_planes()
+        span = self.spans.begin()
         up = self._upload_released(staged)
-        return self._gop(up, tuple(ref0), tuple(ref1), cap_pairs=cap_pairs,
-                         cap_k=cap_k, step_flags=step_flags, bidir=bidir)
+        self.spans.end(span, "upload", unit)
+        span = self.spans.begin()
+        out = self._gop(up, tuple(ref0), tuple(ref1), cap_pairs=cap_pairs,
+                        cap_k=cap_k, step_flags=step_flags, bidir=bidir)
+        self.spans.end(span, "recon", unit)
+        return out
 
 
 def on_device(dev):

@@ -45,6 +45,7 @@ from ..parallel.mesh import RowShardedRecon, StreamBatchRecon, make_mesh
 from ..tokenizer import get_tokenizer
 from ..tokenizer.types import (CHROMA_INFO, PictureGeometry, PictureParams,
                                PictureTokens)
+from .spans import Spans
 
 
 @dataclass
@@ -141,17 +142,20 @@ def host_copy(t: torch.Tensor) -> ChunkHost:
 class LazyFrame:
     """A decoded frame: row ``index`` of a chunk's ``(t, frame_bytes)``
     uint8 tensor, read on the host on first plane access through the
-    chunk's :class:`ChunkHost`."""
+    chunk's :class:`ChunkHost`.  ``picture``: its number in decode order
+    since the decoder's ``reset()``."""
 
     def __init__(self, packed: torch.Tensor, index: int,
                  geom: PictureGeometry, temporal_reference: int,
-                 picture_coding_type: int, shared: ChunkHost, event=None):
+                 picture_coding_type: int, shared: ChunkHost, event=None,
+                 picture: int = 0):
         self._packed = packed
         self._index = index
         self._geom = geom
         self._host = None
         self._shared = shared
         self.event = event          # CUDA event recorded after the chunk
+        self.picture = picture
         self.temporal_reference = temporal_reference
         self.picture_coding_type = picture_coding_type
 
@@ -195,17 +199,19 @@ class PlanesFrame:
     as the multi-device paths deliver it (the JAX package's
     ``PlanesFrame``).  Read on the host on first plane access: through
     ``shared``, a stream batch step's :class:`ChunkHost` per plane of its
-    stacked planes, row ``index``; or, without, by pulling the planes."""
+    stacked planes, row ``index``; or, without, by pulling the planes.
+    ``picture``: its number in its stream's decode order."""
 
     def __init__(self, planes, geom: PictureGeometry,
                  temporal_reference: int, picture_coding_type: int,
-                 shared=None, index: int = 0):
+                 shared=None, index: int = 0, picture: int = 0):
         self._planes = planes
         self._geom = geom
         self._shared = shared
         self._index = index
         self._host = None
         self.event = None
+        self.picture = picture
         self.temporal_reference = temporal_reference
         self.picture_coding_type = picture_coding_type
 
@@ -287,6 +293,8 @@ class MP2VDecoder:
         # reset(), for the next stream
         self._spare_tokens = deque(
             maxlen=2 * max(self.config.gop_chunk, 1))
+        # off until spans.start(); kept across reset() (runtime/spans.py)
+        self.spans = Spans()
         self.reset()
 
     def reset(self) -> None:
@@ -306,8 +314,34 @@ class MP2VDecoder:
         self.user_data: List[bytes] = []  # reference: decoder.cpp:194-200
         self._chunk: List[tuple] = []  # (tokens, geom, ph) awaiting batch
         self._frames: List[LazyFrame] = []
+        # decode() calls and chunks handed on since reset(): the units of
+        # the decode and chunk spans (a picture's is stats["pictures"])
+        self._n_decodes = 0
+        self._n_chunks = 0
+        # Summed since reset(), host seconds on time.time_ns() unless
+        # said; each timed interval is also the span named beside it
+        # (runtime/spans.py) while self.spans records:
+        # - pictures, bad_slices: pictures tokenized, slices dropped
+        #   (on_error="drop_slice");
+        # - tokenize_s: the tokenizer's call (span tokenize, caller);
+        # - fill_s: GopRecon.prepare, its waits for a slot included (span
+        #   prepare: the fill thread, or the caller at gop_chunk=0);
+        # - slot_wait_s: the part of fill_s spent waiting for a free
+        #   staging slot and for the slot's last upload (spans slot_wait);
+        # - fill_wait_s: the dispatch thread waiting for its chunk's
+        #   prepare, i.e. dispatch starved (span fill_wait);
+        # - chunk_wait_s: the caller waiting for the oldest of the chunks
+        #   in flight, past two and at the flush (spans chunk_wait);
+        # - device_s: the upload and the kernels' enqueue, then the host
+        #   copy's, on the host clock with no synchronize: host time of
+        #   the dispatch, not device time (span dispatch; its children
+        #   upload and recon);
+        # - output_s: host output's fetch of delivered frames
+        #   (perf_counter; inside the deliver spans).
         self.stats = {"pictures": 0, "tokenize_s": 0.0, "fill_s": 0.0,
-                      "device_s": 0.0, "output_s": 0.0, "bad_slices": 0}
+                      "device_s": 0.0, "output_s": 0.0, "bad_slices": 0,
+                      "slot_wait_s": 0.0, "fill_wait_s": 0.0,
+                      "chunk_wait_s": 0.0}
 
     # ------------------------------------------------------------------
     def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
@@ -320,8 +354,9 @@ class MP2VDecoder:
         impl = resolve_mc_impl(None, field_support)
         key = (geom, field_support, size, impl)
         if key not in self._recons:
-            self._recons[key] = GopRecon(geom, size, self.device,
-                                         field_support, impl)
+            recon = GopRecon(geom, size, self.device, field_support, impl)
+            recon.spans = self.spans
+            self._recons[key] = recon
         return self._recons[key]
 
     def _mesh_devices(self) -> list:
@@ -359,27 +394,35 @@ class MP2VDecoder:
         self._out_fifo.append(pending)
         pool = self.config.pictures_pool_size
         if pool > 0 and len(self._out_fifo) > pool:
-            ev = self._out_fifo[0].event
+            oldest = self._out_fifo[0]
+            ev = oldest.event
             if ev is not None and ev is not self._routing_event:
+                span = self.spans.begin()
                 ev.synchronize()
+                self.spans.end(span, "pool_wait", oldest.picture)
 
     def _drain(self, keep_last: bool) -> None:
         keep = 1 if keep_last else 0
         while len(self._out_fifo) > keep:
             frame = self._out_fifo.pop(0)
+            span = self.spans.begin()
             if self.config.output_host:
                 t0 = time.perf_counter()
                 frame._flat()
                 self.stats["output_s"] += time.perf_counter() - t0
             if self.renderer is not None:
                 self.renderer(frame)
+            self.spans.end(span, "deliver", frame.picture)
             self._frames.append(frame)
 
     # ------------------------------------------------------------------
     def decode(self, data: bytes) -> List[LazyFrame]:
+        span = self.spans.begin()
         self._frames = []
         self._walk(data, self._decode_picture)
         self.flush()
+        self.spans.end(span, "decode", self._n_decodes)
+        self._n_decodes += 1
         return self._frames
 
     def decode_batch(self, streams: List[bytes]) -> List[list]:
@@ -403,8 +446,10 @@ class MP2VDecoder:
             self.config.num_threads or max(1, cpus // workers)))
 
         def tokenize_one(data):
-            # header state is per stream: one shell decoder each
+            # header state is per stream: one shell decoder each, which
+            # records its tokenize spans into this decoder's
             shell = MP2VDecoder(shell_cfg)
+            shell.spans = self.spans
             return shell.tokenize_stream(data), shell.stats
 
         with ThreadPoolExecutor(max_workers=workers,
@@ -462,12 +507,15 @@ class MP2VDecoder:
                     phs.append(None)
             is_b = [ph is None or ph.picture_coding_type == H.PCT_B
                     for ph in phs]
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
+            span = self.spans.begin(t0)
             refs0, refs1, planes = sb.step(toks, is_b, [not b for b in is_b],
                                            refs0, refs1)
             shared = (tuple(host_copy(p) for p in planes)
                       if self.config.output_host else None)
-            self.stats["device_s"] += time.perf_counter() - t0
+            t1 = time.time_ns()
+            self.stats["device_s"] += (t1 - t0) / 1e9
+            self.spans.end(span, "dispatch", step, t1)
             if self.config.output_host:
                 # earlier steps' frames, whose copies ran while this step
                 # was queued
@@ -479,7 +527,7 @@ class MP2VDecoder:
                     continue
                 frame = PlanesFrame(tuple(p[i] for p in planes), geom,
                                     ph.temporal_reference,
-                                    ph.picture_coding_type, shared, i)
+                                    ph.picture_coding_type, shared, i, step)
                 if not is_b[i] and self.config.reordering:
                     if reorder[i] is not None:
                         emit(i, reorder[i])
@@ -548,10 +596,12 @@ class MP2VDecoder:
     def flush(self) -> None:
         self._flush_chunk()
         self._join_chunks()
+        span = self.spans.begin()
         if self._reorder_slot is not None:
             self._emit(self._reorder_slot)
             self._reorder_slot = None
         self._drain(keep_last=False)
+        self.spans.end(span, "route", self._n_chunks - 1)
 
     def tokenize_stream(self, data: bytes):
         """Host-only pass: parse + tokenize every picture of a stream.
@@ -578,34 +628,49 @@ class MP2VDecoder:
         return self._gop_recon_for(batch[0][1], field,
                                    self.config.gop_chunk or 1)
 
-    def _fill_job(self, recon: GopRecon, batch):
-        """Fill-thread body: pack the chunk into a staging slot, then hand
-        its tokens back for reuse (nothing reads them after ``prepare``)."""
-        t0 = time.perf_counter()
+    def _fill_job(self, recon: GopRecon, batch, unit: int):
+        """Fill-thread body: pack chunk ``unit`` into a staging slot, then
+        hand its tokens back for reuse (nothing reads them after
+        ``prepare``)."""
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         staged = recon.prepare([b[0] for b in batch],
-                               [ph.picture_coding_type for _, _, ph in batch])
+                               [ph.picture_coding_type for _, _, ph in batch],
+                               unit)
         self._spare_tokens.extend(t for t, _, _ in batch)
-        self.stats["fill_s"] += time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.stats["fill_s"] += (t1 - t0) / 1e9
+        self.stats["slot_wait_s"] += recon.slot_wait_ns / 1e9
+        self.spans.end(span, "prepare", unit, t1)
         return staged
 
-    def _disp_job(self, recon: GopRecon, fill_f, batch) -> None:
+    def _disp_job(self, recon: GopRecon, fill_f, batch, unit: int,
+                  first: int) -> None:
         """Dispatch-thread body: one executor thread, so chunks dispatch in
         order; it alone touches the reference list while chunks are in
         flight."""
-        self._dispatch_chunk(recon, fill_f.result(), batch)
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
+        staged = fill_f.result()
+        t1 = time.time_ns()
+        self.stats["fill_wait_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "fill_wait", unit, t1)
+        self._dispatch_chunk(recon, staged, batch, unit, first)
 
-    def _dispatch_chunk(self, recon: GopRecon, staged, batch) -> None:
-        """Upload and reconstruct one prepared chunk, then route its
-        frames.  With host output on ``cuda``, the chunk's frames start
-        their copy to pinned host memory as soon as its kernels are
-        queued."""
+    def _dispatch_chunk(self, recon: GopRecon, staged, batch, unit: int,
+                        first: int) -> None:
+        """Upload and reconstruct prepared chunk ``unit``, whose first
+        picture is number ``first``, then route its frames.  With host
+        output on ``cuda``, the chunk's frames start their copy to pinned
+        host memory as soon as its kernels are queued."""
         geom = batch[0][1]
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         # B-free chunks run the forward-only kernels
         r0, r1, packs = recon.dispatch(
             staged, self._refs[0], self._refs[1],
             bidir=any(ph.picture_coding_type == H.PCT_B
-                      for _, _, ph in batch))
+                      for _, _, ph in batch), unit=unit)
         self._refs = [r0, r1]
         event = None
         if packs.is_cuda:
@@ -613,16 +678,20 @@ class MP2VDecoder:
             event.record()
         host = host_copy(packs) if self.config.output_host else ChunkHost(
             packs)
-        self.stats["device_s"] += time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.stats["device_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "dispatch", unit, t1)
+        span = self.spans.begin()
         self._routing_event = event
         for i, (_, _, ph) in enumerate(batch):
             self._route_frame(
                 LazyFrame(packs, i, geom, ph.temporal_reference,
-                          ph.picture_coding_type, host, event),
+                          ph.picture_coding_type, host, event, first + i),
                 ph.picture_coding_type)
         self._routing_event = None
         # deliver everything but the newest frame
         self._drain(keep_last=True)
+        self.spans.end(span, "route", unit)
 
     def _worker_pool(self, name: str) -> ThreadPoolExecutor:
         """One worker thread, set to the decoder's CUDA device: the kernels
@@ -645,16 +714,30 @@ class MP2VDecoder:
             self._fill_pool = self._worker_pool("mp2v-fill")
             self._disp_pool = self._worker_pool("mp2v-dispatch")
         recon = self._recon_of(batch)
-        fill_f = self._fill_pool.submit(self._fill_job, recon, batch)
-        self._chunk_jobs.append(
-            self._disp_pool.submit(self._disp_job, recon, fill_f, batch))
-        # at most 2 chunks in flight; a worker's exception surfaces here
+        unit = self._n_chunks
+        self._n_chunks += 1
+        first = self.stats["pictures"] - len(batch)
+        fill_f = self._fill_pool.submit(self._fill_job, recon, batch, unit)
+        self._chunk_jobs.append(self._disp_pool.submit(
+            self._disp_job, recon, fill_f, batch, unit, first))
+        # at most 2 chunks in flight
         while len(self._chunk_jobs) > 2:
-            self._chunk_jobs.pop(0).result()
+            self._wait_chunk()
 
     def _join_chunks(self) -> None:
         while self._chunk_jobs:
-            self._chunk_jobs.pop(0).result()
+            self._wait_chunk()
+
+    def _wait_chunk(self) -> None:
+        """Wait for the oldest chunk in flight; a worker's exception
+        surfaces here."""
+        unit = self._n_chunks - len(self._chunk_jobs)
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
+        self._chunk_jobs.pop(0).result()
+        t1 = time.time_ns()
+        self.stats["chunk_wait_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "chunk_wait", unit, t1)
 
     # ------------------------------------------------------------------
     def _picture_tokens(self, data: bytes, cur):
@@ -690,12 +773,16 @@ class MP2VDecoder:
             out = self._spare_tokens.pop()
             if out.geom != geom:
                 out = None
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         tokens = self.tokenize_picture(data, cur["slices"], params, geom,
                                        out=out)
+        t1 = time.time_ns()
+        unit = self.stats["pictures"]
         self.stats["pictures"] += 1
         self.stats["bad_slices"] += tokens.bad_slices
-        self.stats["tokenize_s"] += time.perf_counter() - t0
+        self.stats["tokenize_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "tokenize", unit, t1)
         return tokens, geom, ph
 
     def _decode_picture(self, data: bytes, cur) -> None:
@@ -714,7 +801,10 @@ class MP2VDecoder:
         # this thread
         batch = [(tokens, geom, ph)]
         recon = self._recon_of(batch)
-        self._dispatch_chunk(recon, self._fill_job(recon, batch), batch)
+        unit = self._n_chunks
+        self._n_chunks += 1
+        self._dispatch_chunk(recon, self._fill_job(recon, batch, unit),
+                             batch, unit, self.stats["pictures"] - 1)
 
     def _decode_picture_mesh(self, tokens, geom: PictureGeometry,
                              ph: H.PictureHeader) -> None:
@@ -722,7 +812,10 @@ class MP2VDecoder:
         thread: its MB rows in bands across the mesh, the joined planes the
         next picture's references.  A picture with field-predicted MBs
         takes the field recon."""
-        t0 = time.perf_counter()
+        unit = self._n_chunks
+        self._n_chunks += 1
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         recon = self._mesh_recon_for(geom, bool(tokens.field_pred.any()))
         pct = ph.picture_coding_type
         ip = pct in (H.PCT_I, H.PCT_P)
@@ -730,7 +823,12 @@ class MP2VDecoder:
         planes = recon(tokens, ref0, ref1)
         if ip:
             self._refs = [self._refs[1], planes]
-        self.stats["device_s"] += time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.stats["device_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "dispatch", unit, t1)
+        span = self.spans.begin()
         self._route_frame(PlanesFrame(planes, geom, ph.temporal_reference,
-                                      pct), pct)
+                                      pct, picture=self.stats["pictures"] - 1),
+                          pct)
         self._drain(keep_last=True)
+        self.spans.end(span, "route", unit)
