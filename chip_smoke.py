@@ -26,6 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1080p inputs, with every window at the bottom and right edges, at every
    ``sx & 3`` at every phase, each also on the tightest plane they take
    (``profile_mc_variants.row_case``), and on a 1088x1904 plane;
+   then the blocks form of K2/K3/K4, which the decoder's ``mxu`` path
+   launches (:func:`check_blocks`: a picture's residual block grid and
+   metadata rows in, luma and U+V, on a 1080p 4:2:0 frame picture and a
+   1080-line 4:2:2 field one), equal to its plain version and timed beside
+   the vector form's kernel and beside the glue and that kernel together;
    then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
    plane of uncoded MBs (:func:`uncoded_time`), K2, K7 and K8 on a plane of
    MBs that all predict in both directions (:func:`mode7_times`) and a
@@ -34,10 +39,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
    read just after its decode.  The 16-picture 1080p 4:2:0 IBBP stream
-   (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (K1, K2, K3),
+   (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (K1, K2, K3 in
+   their blocks form, and no launch of their vector form),
    ``roll`` (K1, K5, K6) and ``swar`` (K1, K7); the interlaced 1080-line
    4:2:2 stream with field motion and field DCT
-   (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (K1, K4) and
+   (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (K1, K4's
+   blocks form) and
    ``swar`` (K1, K8).  Each path must launch its kernels exactly as often
    as :data:`PATHS` says and no MC kernel of another implementation, and
    each YUV sha256 must equal the one recorded from the JAX package (the
@@ -87,7 +94,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    threads (the bench's chip-capacity run) on the same stream; (c) first
    the MC kernels of the row path at its shapes (:func:`check_bands`:
    each of 4 bands of 17 MB rows of a 1080-line picture, K7 and K8 given
-   the band's rows as ``H=``, K2–K4 the band's residual rows, each equal
+   the band's rows as ``H=``, K2–K4's vector form the band's residual
+   rows, their blocks form the band's grid, rows and first MB, each equal
    to its plain version on the band and to the same rows of the
    whole-picture launch), then ``mesh="rows"`` in those 4 bands on the
    1080p 4:2:0 and the interlaced streams under ``mxu`` and ``swar``
@@ -144,13 +152,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
 DATA = os.path.join(REPO, "tests", "data")
 # end-to-end paths: (fixture, MP2V_MC_IMPL) -> the launches of its decode
-# (one chunk of 16 pictures: K1 once, the two-plane MC kernels and K7's
-# picture form once per picture, K8 once per component per picture)
+# (one chunk of 16 pictures: K1 once, the two-plane MC kernels — under mxu
+# the blocks form of K2/K3 or K4 — and K7's picture form once per picture,
+# K8 once per component per picture)
 PATHS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 1, "mc_recon_luma": 16, "mc_recon_uv": 16},
+        "idct8x8": 1, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 1, "mc_field_luma": 16, "mc_field_uv": 16},
+        "idct8x8": 1, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
     ("bench_1080p_420_16", "roll"): {
         "idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16},
     ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar_yuv": 16},
@@ -160,9 +169,9 @@ PATHS = {
 # once for each of the four chunks
 PIPELINED = {
     "bench_1080p_420_16": {
-        "idct8x8": 4, "mc_recon_luma": 16, "mc_recon_uv": 16},
+        "idct8x8": 4, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
     "interlaced_1080_422_16": {
-        "idct8x8": 4, "mc_field_luma": 16, "mc_field_uv": 16},
+        "idct8x8": 4, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
 }
 # (pictures_pool_size, output_host) of each pipelined path's two decodes
 DELIVERY = ((0, False), (1, True))
@@ -188,8 +197,9 @@ BENCH_LAUNCHES = {k: 4 * n for k, n in PATHS["bench_1080p_420_16",
 BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
          NATURAL)
 BATCH_CASES = {
-    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_luma": 48, "mc_recon_uv": 48,
-                    "mc_field_luma": 16, "mc_field_uv": 16}),
+    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_blocks_luma": 48,
+                    "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
+                    "mc_field_blocks_uv": 16}),
     "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
     "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
@@ -198,8 +208,8 @@ BATCH_CASES = {
 # 4:2:0 stream in one batch (BASELINE.json's "16x 1080p"), under mxu
 SERVE = "bench_1080p_420_16"
 SERVE_COPIES = 16
-SERVE_LAUNCHES = {"idct8x8": 16, "mc_recon_luma": 16 * SERVE_COPIES,
-                  "mc_recon_uv": 16 * SERVE_COPIES}
+SERVE_LAUNCHES = {"idct8x8": 16, "mc_recon_blocks_luma": 16 * SERVE_COPIES,
+                  "mc_recon_blocks_uv": 16 * SERVE_COPIES}
 # phase 7 (c): mesh="rows" in this many bands (68 MB rows: 17 a band);
 # (fixture, MP2V_MC_IMPL) -> launches: K1 once a picture, the MC kernels
 # once a band a picture (the interlaced stream's I picture, which has no
@@ -207,11 +217,11 @@ SERVE_LAUNCHES = {"idct8x8": 16, "mc_recon_luma": 16 * SERVE_COPIES,
 ROW_BANDS = 4
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_luma": 64, "mc_recon_uv": 64},
+        "idct8x8": 16, "mc_recon_blocks_luma": 64, "mc_recon_blocks_uv": 64},
     ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_luma": 4, "mc_recon_uv": 4,
-        "mc_field_luma": 60, "mc_field_uv": 60},
+        "idct8x8": 16, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
+        "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
     ("interlaced_1080_422_16", "swar"): {
         "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }
@@ -231,10 +241,14 @@ RANK_STREAM = "bench_1080p_420_16"
 RANK_TIMEOUT = 240
 # seconds the bench (run short) and each CLI decode may take
 ENTRY_TIMEOUT = 300
-# every MC kernel's counter: the paths' and K7's one-component form, which
-# no path launches
+# the vector form of K2/K3/K4, which no decode path launches since the
+# blocks form took its place under mxu
+VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
+               "mc_field_uv")
+# every MC kernel's counter: the paths', K7's one-component form and the
+# vector form of K2/K3/K4, which no path launches
 MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
-              | {"mc_swar"}) - {"idct8x8"}
+              | {"mc_swar", *VECTOR_FORM}) - {"idct8x8"}
 TIMED_RUNS = 20
 # the card's peaks for the bound (H100 SXM data sheet): HBM bytes and
 # non-tensor arithmetic per ms; the data sheet lists no rate for integer
@@ -259,9 +273,14 @@ DECODE_RUNS = {"mxu": 5, "roll": 3, "swar": 3}
 LUMA = (("luma", (16, 16), 1088, 1920),)
 CHROMA = (("4:2:0", (8, 8), 544, 960), ("4:2:2", (16, 8), 1088, 960),
           ("4:4:4", (16, 16), 1088, 1920))
-# phase 7 (c)'s MC kernels on the row path's bands (check_bands):
-# (kernel, MP2V_MC_IMPL, U+V, field, the planes the row path gives it on
-# the two 1080-line streams)
+# the blocks form's pictures (check_blocks, and on the row path's bands
+# check_bands): (label, chroma format, field rows) of the two 1080-line
+# streams; MB grid 120 x 68
+BLOCK_PICTURES = (("4:2:0 frame", 1, False), ("4:2:2 field", 2, True))
+BLOCK_MBW, BLOCK_MBH = 120, 68
+# phase 7 (c)'s MC kernels on the row path's bands (check_bands): the
+# vector form of K2-K4, and the SWAR kernels (kernel, MP2V_MC_IMPL, U+V,
+# field, the planes the row path gives it on the two 1080-line streams)
 BAND_MC = (
     ("K2 mc_recon_luma", "mxu", False, False, LUMA),
     ("K3 mc_recon_uv", "mxu", True, False, CHROMA[:1]),
@@ -596,6 +615,114 @@ def check_tiles(torch, np, rng, name, planes, main, check=None, **kw):
     return rec
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks_cases():
+    """This checkout's ``tests/blocks_cases.py`` (the blocks form's random
+    pictures, which ``tests/test_torch_gpu.py`` uses too), loaded by
+    path."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_blocks_cases",
+        os.path.join(REPO, "tests", "blocks_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def blocks_inputs(torch, np, rng, cf: int, field: bool):
+    """One 1080-line picture of :data:`BLOCK_MBW` x :data:`BLOCK_MBH` MBs
+    for the blocks form on the card: ((Y, U, V) references twice, the
+    residual block grid, the metadata rows as the chunk blob carries them),
+    ``blocks_cases.blocks_case``'s draws: dct_type, uncoded MBs, every
+    phase, windows clamped at every edge, and with ``field`` field
+    prediction with selects of both parities."""
+    refs0, refs1, dense, meta = _blocks_cases().blocks_case(
+        rng, cf, field, BLOCK_MBW, BLOCK_MBH)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return (tuple(map(t, refs0)), tuple(map(t, refs1)), t(dense), t(meta))
+
+
+def check_blocks(torch, np, rng) -> dict:
+    """The blocks form of K2/K3/K4, which the decoder's mxu path launches,
+    on each picture of :data:`BLOCK_PICTURES` (luma, then U+V), ``bidir``
+    True and False: equal to its plain version, with the device ms of the
+    kernel (``ms``, ``fwd_ms``), of the vector form's kernel alone on the
+    same picture's vectors and planes (``vector_ms``), of the per-picture
+    glue and that kernel together (``glue_ms``: what the decoder's path
+    ran for the component before the blocks form), of the plain version,
+    and the bound (the bytes this picture's modes need, the metadata rows
+    in place of the vectors).  Returns the four entry points' records."""
+    from tiny_mp2v_dec_tpu_torch.ops import mc_fused
+    out = {}
+    for label, cf, field in BLOCK_PICTURES:
+        r0, r1, dense, meta = blocks_inputs(torch, np, rng, cf, field)
+        form = "field" if field else "recon"
+        for uv in (False, True):
+            name = f"mc_{form}_blocks_{'uv' if uv else 'luma'}"
+            fn, ref_fn, vec_fn = (
+                (mc_fused.fused_mc_recon_uv_blocks,
+                 mc_fused.fused_mc_recon_uv_blocks_ref,
+                 mc_fused.fused_mc_recon_uv) if uv else
+                (mc_fused.fused_mc_recon_blocks,
+                 mc_fused.fused_mc_recon_blocks_ref,
+                 mc_fused.fused_mc_recon))
+            a0, a1 = (tuple(r0[1:]), tuple(r1[1:])) if uv else (r0[0], r1[0])
+            ref = r0[1] if uv else r0[0]
+            rec = {}
+            for bidir in (True, False):
+                kw = dict(chroma_format=cf, mbw=BLOCK_MBW, bidir=bidir)
+
+                def kern():
+                    return fn(a0, a1, dense, meta, **kw)
+
+                def plain():
+                    return ref_fn(a0, a1, dense, meta, **kw)
+
+                def glue():
+                    res, vecs, h, w = mc_fused.blocks_to_vectors(
+                        ref, dense, meta, cf, BLOCK_MBW, uv=uv)
+                    return vec_fn(a0, a1, res if uv else res[0], *vecs, h=h,
+                                  w=w, bidir=bidir)
+
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                got = torch.stack(got) if uv else got
+                want = torch.stack(want) if uv else want
+                err = max_abs_err(torch, got, want)
+                if err or not torch.equal(got, want):
+                    fail(f"{name} {label} bidir={bidir} differs from its "
+                         f"plain version (max abs err {err})")
+                res, vecs, h, w = mc_fused.blocks_to_vectors(
+                    ref, dense, meta, cf, BLOCK_MBW, uv=uv)
+                vec_args = (a0, a1, res if uv else res[0], *vecs)
+                ms = cuda_ms(torch, kern)
+                if bidir:
+                    vec_ms = cuda_ms(torch, lambda: vec_fn(
+                        *vec_args, h=h, w=w, bidir=bidir))
+                    glue_ms = cuda_ms(torch, glue)
+                    plain_ms = cuda_ms(torch, plain)
+                    H, W = ref.shape
+                    flat = [*vecs[:7], *(vecs[7:] if field else ())]
+                    read = mc_read_bytes(
+                        torch, flat, H, W, h, w, n_planes=2 if uv else 1,
+                        field=field, recon=True,
+                        meta_bytes=2 * meta.numel())
+                    rec = {"ms": ms, "vector_ms": vec_ms, "glue_ms": glue_ms,
+                           "plain_ms": plain_ms,
+                           **bound((), (got,), OPS_PER_OUT["recon"], read)}
+                    print(f"{name} {label} bidir=True: equal to plain; "
+                          f"kernel {ms:.4f} ms, the vector form's kernel "
+                          f"{vec_ms:.4f} ms, glue + vector form "
+                          f"{glue_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                          f"bound {rec['bound_ms']:.5f} ms")
+                else:
+                    rec["fwd_ms"] = ms
+                    print(f"{name} {label} bidir=False: equal to plain; "
+                          f"kernel {ms:.4f} ms")
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0), err)
+            out[name] = rec
+    return out
+
+
 def one_mb_times(torch, np, rng) -> dict:
     """K2 and K3 on a plane that holds one MB (16x16 luma; 8x8 U and V),
     coded and bidirectional, checked against the plain version like every
@@ -694,7 +821,8 @@ def tap_bytes(torch, wins, H: int, W: int, w: int, word: int = 1) -> int:
 
 
 def mc_read_bytes(torch, meta, H: int, W: int, th: int, tw: int,
-                  n_planes: int, field: bool, recon: bool) -> int:
+                  n_planes: int, field: bool, recon: bool,
+                  meta_bytes=None) -> int:
     """Input bytes a bidir call of an MC kernel needs at this run's
     inputs (:func:`mc_inputs`' ``meta`` for an (H, W) plane of (th x tw)
     MBs, ``n_planes`` planes sharing it): the mode vector; per direction,
@@ -704,11 +832,14 @@ def mc_read_bytes(torch, meta, H: int, W: int, th: int, tw: int,
     with ``recon`` (K2–K6: residual, clip, coded mask) only of coded MBs
     (bit 4), whose residual is the rest.  An uncoded MB's output is 0
     whatever its inputs, and the SWAR kernels (not ``recon``) ignore the
-    coded bit."""
+    coded bit.  ``meta_bytes``: the bytes of what the kernel reads in
+    place of the vectors (the blocks form's metadata rows), counted
+    instead of the mode vector and the per-direction vectors."""
     mode = meta[6].to(torch.int64)
     fld = (mode & 8) != 0 if field else torch.zeros_like(mode, dtype=bool)
     coded = (mode & 4) != 0 if recon else torch.ones_like(fld)
-    nbytes = 4 * mode.numel()
+    vector_bytes = 4 * mode.numel()
+    nbytes = 0
     for d in range(2):
         use = coded & ((mode & (1 << d)) != 0)
         frame, by_field = use & ~fld, use & fld
@@ -719,11 +850,11 @@ def mc_read_bytes(torch, meta, H: int, W: int, th: int, tw: int,
             # unit u's tile rows are u, u + 2, ...: frame rows C_u + u + 2k
             wins += [(tup[3 * u] + u, tup[3 * u + 1], tup[3 * u + 2], 2,
                       th // 2) for u in range(2)]
-        nbytes += 4 * (3 * int(frame.sum()) + 6 * int(by_field.sum()))
+        vector_bytes += 4 * (3 * int(frame.sum()) + 6 * int(by_field.sum()))
         nbytes += n_planes * tap_bytes(torch, wins, H, W, tw)
     if recon:
         nbytes += n_planes * 2 * th * tw * int(coded.sum())
-    return nbytes
+    return nbytes + (vector_bytes if meta_bytes is None else meta_bytes)
 
 
 def check_rows(torch):
@@ -896,7 +1027,7 @@ def natural_launches(impl: str, gop_chunk: int) -> dict:
     """The launches of a decode of the natural stream's 16 frame-predicted
     pictures: K1 once a chunk (a picture is a chunk at ``gop_chunk=0``),
     the MC kernels of ``impl`` once a picture."""
-    mc = {"mxu": ("mc_recon_luma", "mc_recon_uv"),
+    mc = {"mxu": ("mc_recon_blocks_luma", "mc_recon_blocks_uv"),
           "roll": ("mc_roll_luma", "mc_roll_uv"),
           "swar": ("mc_swar_yuv",)}[impl]
     return {"idct8x8": 16 // gop_chunk if gop_chunk else 16,
@@ -1070,8 +1201,10 @@ def check_bands(torch, np, rng) -> None:
     """Phase 7 (c)'s MC kernels at the row path's shapes: each of
     :data:`ROW_BANDS` bands of MB rows of a 1080-line picture gets the
     band's per-MB vectors (window starts in the whole reference), the
-    whole reference planes and, for K2–K4, the band's residual rows, for
-    K7 and K8 the band's output rows as ``H=``; its output must equal the
+    whole reference planes and, for K2–K4's vector form, the band's
+    residual rows, for K7 and K8 the band's output rows as ``H=``, for the
+    blocks form, which the row path launches under mxu, the band's block
+    grid and metadata rows and its first MB; its output must equal the
     plain version's on the same band and the same rows of the
     whole-picture launch, ``bidir`` True and False.  These launches are
     not counted in the path's launches."""
@@ -1117,6 +1250,35 @@ def check_bands(torch, np, rng) -> None:
             print(f"{name} {label}: {ROW_BANDS} bands of {per} MB rows of "
                   f"{H}x{W}, bidir True and False: each equal to its plain "
                   f"version and to the rows of the whole-picture launch")
+    per = BLOCK_MBH // ROW_BANDS
+    for label, cf, field in BLOCK_PICTURES:
+        r0, r1, dense, meta = blocks_inputs(torch, np, rng, cf, field)
+        bpm = dense.shape[0] // meta.shape[0]
+        for uv, fn, ref_fn in (
+                (False, mc_fused.fused_mc_recon_blocks,
+                 mc_fused.fused_mc_recon_blocks_ref),
+                (True, mc_fused.fused_mc_recon_uv_blocks,
+                 mc_fused.fused_mc_recon_uv_blocks_ref)):
+            a0, a1 = (tuple(r0[1:]), tuple(r1[1:])) if uv else (r0[0], r1[0])
+            for bidir in (True, False):
+                kw = dict(chroma_format=cf, mbw=BLOCK_MBW, bidir=bidir)
+                whole = fn(a0, a1, dense, meta, **kw)
+                th = (whole[0] if uv else whole).shape[0] // BLOCK_MBH
+
+                def call(f):
+                    return lambda sl, k: f(
+                        a0, a1, dense[sl.start * bpm:sl.stop * bpm],
+                        meta[sl], **kw, mb0=sl.start)
+
+                _hold_bands(
+                    torch, f"blocks {'U+V' if uv else 'luma'} {label} "
+                    f"bidir={bidir}", call(fn), call(ref_fn),
+                    lambda k: _rows(whole, slice(k * per * th,
+                                                 (k + 1) * per * th)),
+                    BLOCK_MBW, per)
+        print(f"blocks form {label}: {ROW_BANDS} bands of {per} MB rows, "
+              f"luma and U+V, bidir True and False: each equal to its "
+              f"plain version and to the rows of the whole-picture launch")
     for label, (th, tw), Hc, Wc in BAND_YUV:
         Hy, Wy = Hc * 16 // th, Wc * 16 // tw
         plane_y, _, meta_y = mc_inputs(torch, np, rng, Hy, Wy, 16, 16, False)
@@ -1536,6 +1698,7 @@ def main() -> int:
                                      LUMA + CHROMA, "luma", uv=False,
                                      field=True, impl="swar"),
         **check_rows(torch),
+        **check_blocks(torch, np, rng),
     }
     one_mb = one_mb_times(torch, np, rng)
     uncoded = uncoded_time(torch, np, rng)
@@ -1605,6 +1768,10 @@ def main() -> int:
         "mc_swar_field": ("mc_recon.cu", f"{mcp}:805"),
         "mc_row": ("mc_rows.cu", "tools/profile_mc_variants.py:88"),
         "mc_row_packed": ("mc_rows.cu", "tools/profile_mc_variants.py:206"),
+        "mc_recon_blocks_luma": ("mc_recon.cu", f"{mcp}:448"),
+        "mc_recon_blocks_uv": ("mc_recon.cu", f"{mcp}:492"),
+        "mc_field_blocks_luma": ("mc_recon.cu", f"{mcp}:353"),
+        "mc_field_blocks_uv": ("mc_recon.cu", f"{mcp}:353"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": csrc + sources[name][0],

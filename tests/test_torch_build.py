@@ -170,6 +170,24 @@ def test_sass_digests_ignore_layout():
         "seg 16x16 np=1 bidir=1 field=0 recon=1"}
 
 
+def test_sass_digests_read_the_front_end_parameter():
+    """A source whose segment kernel takes its front end as a template
+    parameter: the vector form (``VecFront``) is the same control under the
+    same key as the form without the parameter, and the blocks form
+    (``BlockFront``), which older sources lack, is no control."""
+    body = ("        /*0000*/ IADD3 R1, R2, R3 ; /* 0x0001 */\n"
+            "        /*0010*/ EXIT ;\n\t\t..........\n\n\n")
+    base = "_ZN3_GN15mc_seg_kernelILi16ELi16ELi1ELb1ELb0ELb1E"
+    older = ab_kernel_times.sass_digests(
+        f"\t\tFunction : {base}EvN4mp2v6PlanesE\n{body}")
+    newer = ab_kernel_times.sass_digests(
+        f"\t\tFunction : {base}NS_8VecFrontILb0EEEEEvN4mp2v6PlanesET5_\n"
+        f"{body}\t\tFunction : {base}NS_10BlockFrontILi16ELi16ELi1ELb0EEEEE"
+        f"vN4mp2v6PlanesET5_\n{body}")
+    assert list(older) == ["seg 16x16 np=1 bidir=1 field=0 recon=1"]
+    assert newer == older
+
+
 def test_sass_opcodes_count_one_kernel():
     """K1's instruction count by opcode: modifiers and predicates dropped,
     the other functions of the listing and cuobjdump's encoding lines left

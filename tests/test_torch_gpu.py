@@ -7,7 +7,9 @@ field-predicted; K5, K6 and K7's picture form on every frame kind; K3, K4,
 K6, K7 and K8 at the chroma tile of every format; K1 from one block to the
 interlaced fixture's 196,608, over all of int16;
 K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
-at every phase, on the tightest plane and at 1088x1904), both 1080-line
+at every phase, on the tightest plane and at 1088x1904; the blocks form
+of K2/K3/K4, which the decoder's mxu path launches, on 1080-line pictures
+of every chroma format, whole and as a band), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, through
 the chunk pipeline at ``gop_chunk=4`` and four times over at
 ``gop_chunk=16``, the MC profiler's parity run and the kernel gate; and
@@ -312,12 +314,100 @@ def test_mc_field_uv_kernel_matches_plain(H, W, tile, kind, bidir):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# the blocks form's pictures: (chroma format, field rows) at 1080 lines,
+# 120 x 68 MBs; the main path's two first
+BLOCK_PICTURES = [(1, False), (2, True), (1, True), (2, False), (3, False),
+                  (3, True)]
+# (first MB row, MB rows) of the whole picture and of the second of the row
+# path's 4 bands
+BLOCK_BANDS = {"whole": (0, 68), "band": (17, 17)}
+
+
+def _blocks_inputs(dev, seed, cf, field):
+    """``tests/blocks_cases.blocks_case`` at 1920x1088 on the card."""
+    from blocks_cases import blocks_case
+    refs0, refs1, dense, meta = blocks_case(np.random.default_rng(seed), cf,
+                                            field, 120, 68)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ([t(x) for x in refs0], [t(x) for x in refs1], t(dense),
+            t(meta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", sorted(BLOCK_BANDS))
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("cf,field", BLOCK_PICTURES)
+def test_blocks_kernels_match_plain(cf, field, bidir, band):
+    """The blocks form — luma and U+V, the field form with field rows — on
+    a 1080-line picture of every chroma format, whole and as the row path's
+    second band (window starts in the whole reference), each one launch and
+    ``torch.equal`` to its plain version; the band equal to the whole
+    picture's rows."""
+    dev = _require_cuda()
+    refs0, refs1, dense, meta = _blocks_inputs(dev, 40 + cf, cf, field)
+    row0, rows = BLOCK_BANDS[band]
+    bpm = dense.shape[0] // meta.shape[0]
+    mb0, n = row0 * 120, rows * 120
+    d, m = dense[mb0 * bpm:(mb0 + n) * bpm], meta[mb0:mb0 + n]
+    form = "field" if field else "recon"
+    kw = dict(chroma_format=cf, mbw=120, mb0=mb0, bidir=bidir)
+    before = dict(_build.LAUNCHES)
+    y = mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], d, m, **kw)
+    uv = mc_fused.fused_mc_recon_uv_blocks(tuple(refs0[1:]),
+                                           tuple(refs1[1:]), d, m, **kw)
+    torch.cuda.synchronize()
+    assert _launched(before) == {f"mc_{form}_blocks_luma": 1,
+                                 f"mc_{form}_blocks_uv": 1}
+    assert torch.equal(y, mc_fused.fused_mc_recon_blocks_ref(
+        refs0[0], refs1[0], d, m, **kw))
+    want = mc_fused.fused_mc_recon_uv_blocks_ref(
+        tuple(refs0[1:]), tuple(refs1[1:]), d, m, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(uv, want))
+    if band == "band":
+        kw.update(mb0=0)
+        whole = [mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], dense,
+                                                meta, **kw),
+                 *mc_fused.fused_mc_recon_uv_blocks(
+                     tuple(refs0[1:]), tuple(refs1[1:]), dense, meta, **kw)]
+        for g, w in zip((y, *uv), whole):
+            th = g.shape[0] // rows
+            assert torch.equal(g, w[row0 * th:(row0 + rows) * th])
+
+
+@pytest.mark.cuda
+def test_blocks_kernels_refuse_misaligned_grid():
+    """The blocks form loads a block row as one 16-byte vector: a grid two
+    bytes into its storage raises on the card before any launch."""
+    dev = _require_cuda()
+    refs0, refs1, dense, meta = _blocks_inputs(dev, 50, 1, False)
+    flat = torch.zeros(dense.numel() + 1, dtype=torch.int16, device=dev)
+    shifted = flat[1:].view(dense.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], shifted, meta,
+                                       chroma_format=1, mbw=120)
+    assert dict(_build.LAUNCHES) == before
+
+
+# the decoder's mxu path: the blocks form of K2/K3 (frame metadata rows)
+# or of K4 (field rows), once each a picture
+MXU_FRAME = ("mc_recon_blocks_luma", "mc_recon_blocks_uv")
+MXU_FIELD = ("mc_field_blocks_luma", "mc_field_blocks_uv")
+# the vector form of K2/K3/K4, which the decoder's path no longer launches
+VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
+               "mc_field_uv")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,kernels", [
-    ("bench_1080p_420_16", ("idct8x8", "mc_recon_luma", "mc_recon_uv")),
-    ("interlaced_1080_422_16", ("idct8x8", "mc_field_luma", "mc_field_uv")),
+    ("bench_1080p_420_16", ("idct8x8",) + MXU_FRAME),
+    ("interlaced_1080_422_16", ("idct8x8",) + MXU_FIELD),
 ])
 def test_decode_fixture_through_kernels(name, kernels):
+    """Each 1080-line fixture decodes to its JAX hash through K1 once and
+    the blocks form of its MC kernels twice a picture (luma, U+V), and no
+    vector-form launch."""
     _require_cuda()
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
         data = f.read()
@@ -331,15 +421,17 @@ def test_decode_fixture_through_kernels(name, kernels):
     for f in frames:
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
-    for k in kernels:
-        assert _build.LAUNCHES[k] > before.get(k, 0), k
+    counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
+              for k in kernels + VECTOR_FORM}
+    assert counts == {"idct8x8": 1, **{k: 16 for k in kernels[1:]},
+                      **{k: 0 for k in VECTOR_FORM}}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool,output_host", [(0, False), (1, True)])
 @pytest.mark.parametrize("name,kernels", [
-    ("bench_1080p_420_16", ("mc_recon_luma", "mc_recon_uv")),
-    ("interlaced_1080_422_16", ("mc_field_luma", "mc_field_uv")),
+    ("bench_1080p_420_16", MXU_FRAME),
+    ("interlaced_1080_422_16", MXU_FIELD),
 ])
 def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
     """``gop_chunk=4``: the fixture's four chunks through the fill and
@@ -374,8 +466,8 @@ def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,kernels", [
-    ("bench_1080p_420_16", ("mc_recon_luma", "mc_recon_uv")),
-    ("interlaced_1080_422_16", ("mc_field_luma", "mc_field_uv")),
+    ("bench_1080p_420_16", MXU_FRAME),
+    ("interlaced_1080_422_16", MXU_FIELD),
 ])
 def test_decode_fixture_over_four_chunks(name, kernels):
     """The main path at ``gop_chunk=16`` over several chunks: the fixture
@@ -404,7 +496,7 @@ def test_decode_fixture_over_four_chunks(name, kernels):
 
 
 # MP2V_MC_IMPL -> the MC kernels of a frame-predicted picture
-FRAME_MC = {"mxu": ("mc_recon_luma", "mc_recon_uv"),
+FRAME_MC = {"mxu": MXU_FRAME,
             "roll": ("mc_roll_luma", "mc_roll_uv"),
             "swar": ("mc_swar_yuv",)}
 
@@ -819,8 +911,9 @@ BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
 # once a step, the longest stream of each group setting its steps; the MC
 # kernels once a stream a step, padding included)
 BATCH_CASES = {
-    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_luma": 48, "mc_recon_uv": 48,
-                    "mc_field_luma": 16, "mc_field_uv": 16}),
+    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_blocks_luma": 48,
+                    "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
+                    "mc_field_blocks_uv": 16}),
     "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
     "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
@@ -855,11 +948,11 @@ def test_decode_batch_fixtures(monkeypatch, impl):
 # stream's I picture, which has no field MB, on the frame kernels)
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_luma": 64, "mc_recon_uv": 64},
+        "idct8x8": 16, "mc_recon_blocks_luma": 64, "mc_recon_blocks_uv": 64},
     ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_luma": 4, "mc_recon_uv": 4,
-        "mc_field_luma": 60, "mc_field_uv": 60},
+        "idct8x8": 16, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
+        "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
     ("interlaced_1080_422_16", "swar"): {
         "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }

@@ -1,0 +1,212 @@
+"""The blocks form of the MC kernels K2/K3/K4 on the CPU.
+
+``mc_fused.fused_mc_recon_blocks`` and ``fused_mc_recon_uv_blocks`` take a
+picture's residual block grid and its metadata rows as the chunk blob
+carries them; the decoder's ``mxu`` path runs them.  On the CPU they take
+their plain versions.  These tests hold them, on random pictures of every
+chroma format, frame and field rows, both directions and forward only,
+whole pictures and bands:
+
+* equal to the vector-form composition the decoder ran before the blocks
+  form (the residual laid out as planes, the MVs unpacked, scaled and
+  turned into window starts by ``mc_meta`` / ``mc_field_meta``, then the
+  vector-form wrappers);
+* equal to a thread-by-thread model of the kernel's blocks front end
+  (``blocks_cases.kernel_model``), the index arithmetic that only the card
+  runs;
+
+and check that each refuses what its kernel would refuse, on either
+device.
+"""
+import numpy as np
+import pytest
+import torch
+
+from blocks_cases import blocks_case, kernel_model
+from tiny_mp2v_dec_tpu_torch import headers as H
+from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused
+from tiny_mp2v_dec_tpu_torch.tokenizer.types import CHROMA_INFO
+
+CFS = (H.CHROMA_420, H.CHROMA_422, H.CHROMA_444)
+# (mb rows of the band, its first row): the whole 5-row picture, a band
+BANDS = {"whole": (5, 0), "band": (2, 2)}
+MBW, MBH = 4, 5
+
+
+def _case(seed, cf, field, band):
+    rng = np.random.default_rng(seed)
+    refs0, refs1, dense, meta = blocks_case(rng, cf, field, MBW, MBH)
+    rows, row0 = BANDS[band]
+    sl = slice(row0 * MBW, (row0 + rows) * MBW)
+    bpm = dense.shape[0] // meta.shape[0]
+    t = torch.from_numpy
+    return ([t(x) for x in refs0], [t(x) for x in refs1],
+            t(np.ascontiguousarray(dense[sl.start * bpm:sl.stop * bpm])),
+            t(np.ascontiguousarray(meta[sl])), row0 * MBW)
+
+
+def _vector_form(refs0, refs1, dense, meta, cf, mb0, bidir):
+    """The decoder's per-picture composition before the blocks form:
+    ``_unpack_meta2``, ``_tiles_from_blocks``, ``_plane_from_tiles``,
+    ``_scale_mv``, ``mc_meta``/``mc_field_meta`` and the vector-form
+    wrappers ``fused_mc_recon`` / ``fused_mc_recon_uv``."""
+    fs = meta.shape[1] == 9
+    dct, fwd, bwd, fpred, coded, mv, mvfs = mc_fused._unpack_meta2(meta, fs)
+    xs, ys, n_cb = CHROMA_INFO[cf]
+    n = meta.shape[0]
+    residual = dense.view(n, 4 + 2 * n_cb, 8, 8)
+    mode = fwd.to(torch.int32) + 2 * bwd.to(torch.int32) + 4 * coded.to(
+        torch.int32)
+    if fs:
+        mode = mode + 8 * fpred.to(torch.int32)
+    mb = mb0 + np.arange(n)
+    mb_y, mb_x = mb // MBW, mb % MBW
+    mbh = n // MBW
+    out = []
+    for uv in (False, True):
+        ch, cw = (16 >> ys, 16 >> xs) if uv else (16, 16)
+        sy, sx = (ys, xs) if uv else (0, 0)
+        py = torch.from_numpy(((mb_y * 16) >> sy).astype(np.int32))
+        px = torch.from_numpy(((mb_x * 16) >> sx).astype(np.int32))
+        mvs = mc_fused._scale_mv(mv, cf) if uv else mv
+        Hr, Wr = (refs0[1] if uv else refs0[0]).shape
+        vecs = [*mc_fused.mc_meta(py, px, mvs[:, 0, 0, 0], mvs[:, 0, 0, 1],
+                                  Hr, Wr, ch, cw),
+                *mc_fused.mc_meta(py, px, mvs[:, 0, 1, 0], mvs[:, 0, 1, 1],
+                                  Hr, Wr, ch, cw), mode]
+        if fs:
+            vecs += [mc_fused.mc_field_meta(py, px, mvs[:, :, s],
+                                            mvfs[:, :, s], Hr, Wr, ch, cw)
+                     for s in range(2)]
+        if uv:
+            inter = dct if cf != H.CHROMA_420 else None
+            res = tuple(mc_fused._plane_from_tiles(
+                mc_fused._tiles_from_blocks(b, ch // 8, cw // 8, inter),
+                mbh, MBW, ch, cw)
+                for b in (residual[:, 4:4 + n_cb], residual[:, 4 + n_cb:]))
+            out += mc_fused.fused_mc_recon_uv(
+                tuple(refs0[1:]), tuple(refs1[1:]), res, *vecs, h=ch, w=cw,
+                bidir=bidir)
+        else:
+            res = mc_fused._plane_from_tiles(
+                mc_fused._tiles_from_blocks(residual[:, :4], 2, 2, dct),
+                mbh, MBW, 16, 16)
+            out.append(mc_fused.fused_mc_recon(refs0[0], refs1[0], res,
+                                               *vecs, bidir=bidir))
+    return out
+
+
+def _blocks_form(refs0, refs1, dense, meta, cf, mb0, bidir):
+    kw = dict(chroma_format=cf, mbw=MBW, mb0=mb0, bidir=bidir)
+    y = mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], dense, meta, **kw)
+    u, v = mc_fused.fused_mc_recon_uv_blocks(tuple(refs0[1:]),
+                                             tuple(refs1[1:]), dense, meta,
+                                             **kw)
+    return [y, u, v]
+
+
+@pytest.mark.parametrize("band", sorted(BANDS))
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("field", [False, True])
+@pytest.mark.parametrize("cf", CFS)
+def test_blocks_form_equals_vector_form(cf, field, bidir, band):
+    """Y, U and V of the blocks form equal the vector-form composition's,
+    and the kernel model's, on a picture with dct_type on some MBs,
+    uncoded MBs, windows clamped at every edge and, with field rows, field
+    prediction with selects of both parities; whole or a band of MB rows
+    from row 2 (its window starts in the whole reference's
+    coordinates)."""
+    seed = 1000 + 10 * cf + 4 * field + 2 * bidir + (band == "band")
+    refs0, refs1, dense, meta, mb0 = _case(seed, cf, field, band)
+    before = dict(_build.LAUNCHES)
+    got = _blocks_form(refs0, refs1, dense, meta, cf, mb0, bidir)
+    want = _vector_form(refs0, refs1, dense, meta, cf, mb0, bidir)
+    assert dict(_build.LAUNCHES) == before
+    for c, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.uint8 and g.shape == w.shape, c
+        assert torch.equal(g, w), f"component {c}"
+    r0, r1 = [r.numpy() for r in refs0], [r.numpy() for r in refs1]
+    rest = (dense.numpy(), meta.numpy(), cf, MBW, mb0, bidir)
+    model = (kernel_model(r0[:1], r1[:1], *rest, uv=False)
+             + kernel_model(r0[1:], r1[1:], *rest, uv=True))
+    for c, (g, m) in enumerate(zip(got, model)):
+        np.testing.assert_array_equal(g.numpy(), m, err_msg=f"component {c}")
+
+
+def test_cases_reach_what_they_are_for():
+    """The random pictures hold what the tests above are said to cover:
+    dct_type, uncoded and field-predicted MBs, selects of both parities in
+    each unit and direction, and windows clamped at all four edges."""
+    _, _, _, meta = blocks_case(np.random.default_rng(1), H.CHROMA_422, True,
+                                MBW, MBH)
+    flags = meta[:, 0].astype(np.int64)
+    assert (flags & 1).any() and not (flags & 1).all()
+    assert not ((flags >> 4) & 1).all()
+    assert (flags & 8).any()
+    for bit in range(5, 9):
+        assert ((flags >> bit) & 1).any() and not ((flags >> bit) & 1).all()
+    mvx, mvy = meta[:, 1].astype(int), meta[:, 2].astype(int)
+    mb = np.arange(len(meta))
+    y = (mb // MBW) * 16 + (mvy >> 1)
+    x = (mb % MBW) * 16 + (mvx >> 1)
+    assert (y < 0).any() and (y > 16 * MBH - 16).any()
+    assert (x < 0).any() and (x > 16 * MBW - 16).any()
+
+
+def _refusal_args(cf=H.CHROMA_420, field=False):
+    refs0, refs1, dense, meta, _ = _case(7, cf, field, "whole")
+    return refs0, refs1, dense, meta
+
+
+def _grid_misaligned(dense):
+    flat = torch.zeros(dense.numel() + 1, dtype=torch.int16)
+    shifted = flat[1:].view(dense.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return shifted
+
+
+# refusal -> (what it changes of the good arguments, the message)
+REFUSALS = {
+    "meta_dtype": (lambda d, m: (d, m.to(torch.int32)), "metadata rows"),
+    "meta_cols": (lambda d, m: (d, torch.zeros((m.shape[0], 6),
+                                               dtype=torch.int16)),
+                  "metadata rows"),
+    "grid_dtype": (lambda d, m: (d.to(torch.int32), m), "block grid"),
+    "grid_misaligned": (lambda d, m: (_grid_misaligned(d), m), "16-byte"),
+    "grid_length": (lambda d, m: (d[:-1].clone(), m), "block grid"),
+}
+
+
+@pytest.mark.parametrize("uv", [False, True])
+@pytest.mark.parametrize("refusal", sorted(REFUSALS))
+def test_blocks_form_refuses(refusal, uv):
+    """Each wrapper refuses, before any work, metadata rows of another
+    dtype or of a column count other than 5 or 9, a block grid of another
+    dtype, one not 16-byte aligned (the kernel loads a block row as one
+    16-byte vector) and one of the wrong length for the MBs."""
+    refs0, refs1, dense, meta = _refusal_args()
+    change, msg = REFUSALS[refusal]
+    dense, meta = change(dense, meta)
+    kw = dict(chroma_format=H.CHROMA_420, mbw=MBW)
+    with pytest.raises(ValueError, match=msg):
+        if uv:
+            mc_fused.fused_mc_recon_uv_blocks(tuple(refs0[1:]),
+                                              tuple(refs1[1:]), dense, meta,
+                                              **kw)
+        else:
+            mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], dense, meta,
+                                           **kw)
+
+
+@pytest.mark.parametrize("bad", ["mbw", "mb0", "past_reference", "format"])
+def test_blocks_form_refuses_geometry(bad):
+    """MBs that are not whole MB rows, a band that does not start at a row
+    or that lies past the reference, and an unknown chroma format."""
+    refs0, refs1, dense, meta = _refusal_args()
+    kw = {"mbw": dict(chroma_format=H.CHROMA_420, mbw=3),
+          "mb0": dict(chroma_format=H.CHROMA_420, mbw=MBW, mb0=2),
+          "past_reference": dict(chroma_format=H.CHROMA_420, mbw=MBW,
+                                 mb0=MBW),
+          "format": dict(chroma_format=0, mbw=MBW)}[bad]
+    with pytest.raises(ValueError):
+        mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], dense, meta, **kw)

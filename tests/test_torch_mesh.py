@@ -300,6 +300,18 @@ def _band_inputs(seed, cf, field, mbw=4, mbh=6):
         torch.from_numpy(r) for r in refs]
 
 
+def _meta_rows(vecs, field):
+    """The vectors of :func:`_band_inputs` packed as the chunk blob's
+    metadata rows (the port's ``pack_meta2``)."""
+    from types import SimpleNamespace
+
+    from tiny_mp2v_dec_tpu_torch.ops.recon import pack_meta2
+    names = ("dct_type", "fwd", "bwd", "field_pred", "coded", "mv", "mvfs")
+    t = SimpleNamespace(**{k: v.numpy() for k, v in zip(names, vecs)})
+    t.geom = SimpleNamespace(n_mb=len(t.fwd))
+    return torch.from_numpy(pack_meta2(t, field))
+
+
 @pytest.mark.parametrize("cf", [H.CHROMA_420, H.CHROMA_422])
 @pytest.mark.parametrize("impl,field", BAND_CASES)
 def test_band_equals_rows_of_the_whole_picture(impl, field, cf):
@@ -307,13 +319,15 @@ def test_band_equals_rows_of_the_whole_picture(impl, field, cf):
     rows of the whole-picture reconstruction, for every MC implementation
     and both metadata forms (the field form with field-predicted MBs)."""
     geom, residual, vecs, refs = _band_inputs(100 + cf, cf, field)
+    dense, meta = residual.reshape(-1, 64), _meta_rows(vecs, field)
     recon = DeviceRecon(geom, "cpu", field_support=field, mc_impl=impl)
-    whole = recon._recon_from_residual(residual, *vecs, *refs)
-    mbw, per = geom.mb_width, 2
+    whole = recon._recon_from_residual(dense, meta, *refs)
+    mbw, per, bpm = geom.mb_width, 2, geom.blocks_per_mb
     for row0 in range(0, geom.mb_height, per):
         sl = slice(row0 * mbw, (row0 + per) * mbw)
         band = recon._recon_from_residual(
-            residual[sl], *(v[sl] for v in vecs), *refs, band=(row0, per))
+            dense[sl.start * bpm:sl.stop * bpm], meta[sl], *refs,
+            band=(row0, per))
         for c, (b, w) in enumerate(zip(band, whole)):
             h = b.shape[0]
             assert h == w.shape[0] * per // geom.mb_height

@@ -59,7 +59,7 @@ def device_recon_parity(mc_impl, cf, width, height, field, seed,
     from tiny_mp2v_dec_tpu.parallel.mesh import random_tokens
     from tiny_mp2v_dec_tpu.tokenizer.types import PictureGeometry as JaxGeom
     from tiny_mp2v_dec_tpu_torch import PictureGeometry
-    from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
+    from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon, pack_meta2
 
     rng = np.random.default_rng(seed)
     geom = JaxGeom(width=width, height=height, chroma_format=cf)
@@ -86,8 +86,10 @@ def device_recon_parity(mc_impl, cf, width, height, field, seed,
                                      chroma_format=cf), "cpu",
                      field_support=field, mc_impl=mc_impl)
     assert pr.mc_impl == mc_impl
+    # the port takes the tokens as the chunk blob carries them
     got = pr._recon_from_residual(
-        torch.from_numpy(residual), *map(torch.from_numpy, vecs),
+        torch.from_numpy(residual.reshape(-1, 64)),
+        torch.from_numpy(pack_meta2(t, field)),
         *map(torch.from_numpy, refs), bidir=bidir)
     for comp, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),

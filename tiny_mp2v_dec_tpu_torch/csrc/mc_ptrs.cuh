@@ -26,6 +26,20 @@
 //
 // th and tw are the chroma tile, Hr and Wr the luma reference's; luma is
 // 16x16 and a chroma plane (Hr / 16 * th, Wr / 16 * tw).
+//
+// The blocks form of K2/K3/K4 (mp2v_mc_{recon,field}_blocks_{luma,uv},
+// csrc/mc_recon.cu) takes an array of 8 pointers laid out as the first 8
+// above, with the residual pair replaced:
+//
+//   0-1  ref0[2], 2-3 ref1[2]   as above
+//   4    the picture's residual block grid, int16 (n_mb * blocks_per_mb, 64)
+//   5    its metadata rows, int16 (n_mb, cols)
+//   6-7  out[2]    as above
+//
+// Then cols (5, or 9 with field motion), the chroma format, n_mb, the first
+// MB's index in the picture (a band's), mbw, the planes' Hr and Wr (the
+// luma reference's for the luma forms, a chroma plane's for U+V), bidir and
+// the stream.
 #pragma once
 
 #include <stdint.h>
@@ -120,3 +134,8 @@ inline const int32_t* yuv_modes_of(const void* const* ptrs) {
   const void *const *ptrs, int th, int tw, int n_mb, int mbw, int Hr,     \
       int Wr, int bidir, void *stream
 #define MP2V_MC_FWD ptrs, th, tw, n_mb, mbw, Hr, Wr, bidir, stream
+#define MP2V_MC_BLOCKS_ARGS                                               \
+  const void *const *ptrs, int cols, int cf, int n_mb, int mb0, int mbw,  \
+      int Hr, int Wr, int bidir, void *stream
+#define MP2V_MC_BLOCKS_FWD \
+  ptrs, cols, cf, n_mb, mb0, mbw, Hr, Wr, bidir, stream

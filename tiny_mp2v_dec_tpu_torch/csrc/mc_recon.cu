@@ -90,6 +90,37 @@
 // stores zeros.  Staging windows in shared memory behind a block-wide barrier
 // (K5's and K6's first form) measured slower than one thread per pixel, and
 // a tile of a few hundred bytes gives TMA or wgmma nothing to do.
+//
+// Two front ends feed that body (the Front template parameter): where a
+// thread finds its MB's mode, its residual row and, per direction, its
+// window.
+//   VecFront    the per-MB int32 vectors above (mode, and per direction the
+//               window starts and phases of mc_meta, the field tuples of
+//               mc_field_meta) and int16 residual planes: the JAX kernels'
+//               interface, which the kernel gate and K8 use;
+//   BlockFront  the blocks form (mp2v_mc_*_blocks_*), which the decoder's
+//               mxu path takes: the picture's int16 metadata rows as the
+//               chunk blob carries them (ops/recon.py pack_meta2: flags,
+//               then the MVs; 5 columns, or 9 with field motion) and the
+//               IDCT's residual block grid ((n_mb * blocks_per_mb, 64)
+//               int16).  Each thread derives from its MB's row what the
+//               per-picture PyTorch glue of ops/recon.py and ops/mc_fused.py
+//               computed before any launch (_unpack_meta2, the mode sum,
+//               _scale_mv, mc_meta, mc_field_meta, _tiles_from_blocks,
+//               _plane_from_tiles): the MB's plane position from its index
+//               (plus the band's first MB), the mode, the chroma vector
+//               scaling, the clamped window starts and phases and the
+//               field units, all integer arithmetic bit for bit as there;
+//               and it reads its 16 residual bytes straight from its 8x8
+//               block's row (the field-DCT interleave where a block column
+//               spans the tile's 16 rows: luma, 4:2:2 and 4:4:4 chroma).
+//               Nothing of it is stored.  A picture's device work is then
+//               these two launches and the three copies that pack its
+//               frame, where with the glue it was 78 launches at 1080p
+//               4:2:0 and 229 at 1080-line 4:2:2 with field motion.
+// The blocks form reads a luma MB's 512 residual bytes contiguously, a few
+// bytes of metadata per MB instead of 28 (or 76 with field tuples) of
+// vectors, and what bounds it is unchanged: bytes, over the launch floor.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,33 +143,131 @@ constexpr int kThreads = 256;
 // blocks per SM.  The frame forms keep no minimum (0: none is set).
 constexpr int kFieldBlocks = 8;
 
-// Segment `seg` of tile row ty of MB i's prediction in one direction, two
-// words: the field unit of row ty for an MB with mode bit 8 (FIELD forms),
-// the frame window otherwise; one halfpel_word2 call either way.
-template <bool FIELD>
-__device__ __forceinline__ uint2 seg_pred(const uint8_t* ref,
-                                          const DirMeta& d, int i, int mode,
-                                          int ty, int seg, int Hr, int nw) {
-  int y, sx, ph, vs = 1;
-  if (FIELD && (mode & 8)) {
-    // selects, not a run-time index into the parameter arrays, which would
-    // copy them to local memory
-    const bool r = ty & 1;
-    const int32_t* fc = r ? d.fc[1] : d.fc[0];
-    const int32_t* fx = r ? d.fx[1] : d.fx[0];
-    const int32_t* fp = r ? d.fp[1] : d.fp[0];
-    y = fc[i] + ty;
-    sx = fx[i];
-    ph = fp[i];
-    vs = 2;
-  } else {
-    y = d.sy[i] + ty;
-    sx = d.sx[i];
-    ph = d.ph[i];
-  }
-  return mp2v::halfpel_word2((const uint32_t*)ref, Hr, nw, y, sx, 2 * seg,
-                             ph, vs);
+// A direction's taps for one tile row: the a/b taps on frame row y from
+// pixel column sx, the c/d taps vs rows below, phase ph (bit 0 horizontal,
+// bit 1 vertical).
+struct Window {
+  int y, sx, ph, vs;
+};
+
+// Segment `seg` of a tile row's prediction in one direction, two words:
+// one halfpel_word2 call at the row's window.
+__device__ __forceinline__ uint2 seg_pred(const uint8_t* ref, Window w,
+                                          int seg, int Hr, int nw) {
+  return mp2v::halfpel_word2((const uint32_t*)ref, Hr, nw, w.y, w.sx,
+                             2 * seg, w.ph, w.vs);
 }
+
+// The vector front end: the mode vector, per direction the frame window
+// (sy, sx, ph) and under FIELD the units' (C, sx, ph), and the residual
+// planes of the kernel's Planes.
+template <bool FIELD>
+struct VecFront {
+  DirMeta fm, bm;
+  const int32_t* modes;
+
+  __device__ __forceinline__ int mode(int i) const { return modes[i]; }
+
+  // the segment's 8 residual pixels: offset o of the plane's residual
+  __device__ __forceinline__ const int16_t* residual(const Planes& p, int i,
+                                                     int pl, int ty, int seg,
+                                                     long long o) const {
+    return (pl ? p.res[1] : p.res[0]) + o;
+  }
+
+  // direction s's window for tile row ty of MB i: the field unit of row ty
+  // for an MB with mode bit 8 (FIELD forms), the frame window otherwise
+  __device__ __forceinline__ Window window(int s, int i, int mode, int ty,
+                                           int Hr, int nw) const {
+    const DirMeta& d = s ? bm : fm;
+    if (FIELD && (mode & 8)) {
+      // selects, not a run-time index into the parameter arrays, which
+      // would copy them to local memory
+      const bool r = ty & 1;
+      const int32_t* fc = r ? d.fc[1] : d.fc[0];
+      const int32_t* fx = r ? d.fx[1] : d.fx[0];
+      const int32_t* fp = r ? d.fp[1] : d.fp[0];
+      return Window{fc[i] + ty, fx[i], fp[i], 2};
+    }
+    return Window{d.sy[i] + ty, d.sx[i], d.ph[i], 1};
+  }
+};
+
+// The blocks front end (see the note at the top): MB i's metadata row and
+// its blocks in the residual grid, for a (TH x TW) tile of NP planes — luma
+// (NP = 1, 16x16) or U and V (NP = 2) at the chroma tile of the format,
+// 8x8 (4:2:0), 16x8 (4:2:2) or 16x16 (4:4:4), which also gives the
+// format's subsampling.  The rows hold flags (bit 0 dct_type, 1 forward, 2
+// backward, 3 field_pred, 4 coded, 5 + 2r + s motion_vertical_field_select
+// of unit r, direction s) and the half-pel MVs: unit r, direction s at
+// columns 1 + 4r + 2s (x) and 2 + 4r + 2s (y), unit 0 alone without field
+// motion (5 columns, FIELD false; 9 with it).
+template <int TH, int TW, int NP, bool FIELD>
+struct BlockFront {
+  static constexpr int COLS = FIELD ? 9 : 5;
+  // chroma subsampling of the component: 0 for luma and 4:4:4
+  static constexpr int XS = TW == 8, YS = TH == 8;
+  // blocks across a tile row, and of one chroma plane of an MB
+  static constexpr int SEGS = TW / 8;
+  static constexpr int NCB = (TH / 8) * (TW / 8);
+  const int16_t* grid;  // (n_mb * bpm, 64): MB i's blocks from row i * bpm
+  const int16_t* meta;  // (n_mb, COLS)
+  int bpm;              // blocks per MB: 4 luma, then NCB of U and of V
+  int mb0;              // the first MB's index in the whole picture
+  int mbw;              // MBs per picture row
+
+  __device__ __forceinline__ int flags(int i) const {
+    return meta[(long long)i * COLS];
+  }
+
+  // forward, backward, coded, field_pred -> mode bits 1, 2, 4, 8
+  __device__ __forceinline__ int mode(int i) const {
+    const int f = flags(i);
+    return ((f >> 1) & 3) | ((f >> 2) & 4) | (f & 8);
+  }
+
+  // the segment's 8 residual pixels: row `row` of block `blk` of MB i, the
+  // tile's block column `seg`; under field DCT a 16-row block column
+  // interleaves its two blocks' rows (the top block's the even tile rows)
+  __device__ __forceinline__ const int16_t* residual(const Planes&, int i,
+                                                     int pl, int ty, int seg,
+                                                     long long) const {
+    const bool inter = TH == 16 && (flags(i) & 1);
+    const int base = NP == 1 ? 0 : (pl ? 4 + NCB : 4);
+    const int blk = base + (inter ? ty & 1 : ty >> 3) * SEGS + seg;
+    const int row = inter ? ty >> 1 : ty & 7;
+    return grid + ((long long)i * bpm + blk) * 64 + row * 8;
+  }
+
+  // direction s's window for tile row ty of MB i on the (Hr, 4 * nw)
+  // plane: the MB's position, its MV scaled to the component, the start
+  // clamped into the plane as mc_meta clamps it; for a field-predicted MB
+  // (FIELD), row ty's unit r = ty & 1 with its field select, its field
+  // window start clamped in field rows as mc_field_meta clamps it, and the
+  // unit's affine row base C_r = 2 * syf_r + sel_r - r
+  __device__ __forceinline__ Window window(int s, int i, int mode, int ty,
+                                           int Hr, int nw) const {
+    const int g = mb0 + i;
+    const int mby = g / mbw;
+    const int py = (mby * 16) >> YS, px = ((g - mby * mbw) * 16) >> XS;
+    const int16_t* m = meta + (long long)i * COLS;
+    if (FIELD && (mode & 8)) {
+      const int r = ty & 1;
+      const int mvx = m[1 + 4 * r + 2 * s] >> XS;
+      const int mvy = m[2 + 4 * r + 2 * s] >> YS;
+      const int sel = (m[0] >> (5 + 2 * r + s)) & 1;
+      const int syf =
+          min(max((py >> 1) + (mvy >> 1), 0), (Hr >> 1) - TH / 2);
+      const int sx = min(max(px + (mvx >> 1), 0), 4 * nw - TW);
+      return Window{2 * syf + sel - r + ty, sx, (mvx & 1) + 2 * (mvy & 1),
+                    2};
+    }
+    const int mvx = m[1 + 2 * s] >> XS, mvy = m[2 + 2 * s] >> YS;
+    return Window{min(max(py + (mvy >> 1), 0), Hr - TH) + ty,
+                  min(max(px + (mvx >> 1), 0), 4 * nw - TW),
+                  (mvx & 1) + 2 * (mvy & 1), 1};
+  }
+};
 
 // One thread per 8-pixel row segment; thread t of the grid is segment
 // `seg` of tile row `ty` of plane `pl` of MB i (see the note at the top).
@@ -146,12 +275,12 @@ __device__ __forceinline__ uint2 seg_pred(const uint8_t* ref,
 // that the threads of a plane's row cover 16 pixels: 32 bytes of residual,
 // one whole sector.  FIELD: mode bit 8 selects field prediction (K4, K8).
 // RECON: residual, clip and coded mask into uint8 planes (K2-K4);
-// otherwise the prediction words alone into out[0] (K8, NP = 1).
-template <int TH, int TW, int NP, bool BIDIR, bool FIELD, bool RECON>
+// otherwise the prediction words alone into out[0] (K8, NP = 1).  Front:
+// VecFront or BlockFront, where the MB's inputs come from.
+template <int TH, int TW, int NP, bool BIDIR, bool FIELD, bool RECON,
+          class Front>
 __global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
-    mc_seg_kernel(Planes p, DirMeta fm, DirMeta bm,
-                  const int32_t* __restrict__ modes, int n_mb, int mbw,
-                  int Hr, int nw) {
+    mc_seg_kernel(Planes p, Front in, int n_mb, int mbw, int Hr, int nw) {
   constexpr int SEGS = TW / 8;       // segments per tile row
   constexpr int TPP = TH * SEGS;     // threads per plane of one MB
   constexpr int G = mbs_per_group(TW);
@@ -167,24 +296,25 @@ __global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
   const long long o = (long long)((i / mbw) * TH + ty) * (mbw * TW) +
                       (i % mbw) * TW + seg * 8;
   uint8_t* out = (pl ? p.out[1] : p.out[0]) + o;
-  const int mode = modes[i];
+  const int mode = in.mode(i);
   [[maybe_unused]] int4 res;
   if constexpr (RECON) {
     if (!(mode & 4)) {
       *reinterpret_cast<uint2*>(out) = make_uint2(0u, 0u);
       return;
     }
-    res = *reinterpret_cast<const int4*>((pl ? p.res[1] : p.res[0]) + o);
+    res = *reinterpret_cast<const int4*>(in.residual(p, i, pl, ty, seg, o));
   }
   const bool f = (mode & 1) != 0;
   const bool b = BIDIR && (mode & 2) != 0;
   uint2 pred = make_uint2(0u, 0u);
   if (f)
-    pred = seg_pred<FIELD>(pl ? p.ref0[1] : p.ref0[0], fm, i, mode, ty, seg,
-                           Hr, nw);
+    pred = seg_pred(pl ? p.ref0[1] : p.ref0[0],
+                    in.window(0, i, mode, ty, Hr, nw), seg, Hr, nw);
   if (b) {
-    const uint2 pb = seg_pred<FIELD>(pl ? p.ref1[1] : p.ref1[0], bm, i, mode,
-                                     ty, seg, Hr, nw);
+    const uint2 pb = seg_pred(pl ? p.ref1[1] : p.ref1[0],
+                              in.window(1, i, mode, ty, Hr, nw), seg, Hr,
+                              nw);
     pred = f ? make_uint2(__vavgu4(pred.x, pb.x), __vavgu4(pred.y, pb.y))
              : pb;
   }
@@ -194,31 +324,37 @@ __global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
   *reinterpret_cast<uint2*>(out) = pred;
 }
 
-// Pointer order: csrc/mc_ptrs.cuh.  The one-plane forms read only index 0
-// of each plane pair (K8: out[0] is the word plane, res unread); the frame
-// forms leave the field tuples unread (null).
-template <bool FIELD, bool RECON, int TH, int TW, int NP>
-int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
-           int bidir, void* stream) {
+// One launch of a form of the segment kernel over n_mb MBs of mbw to a
+// row, on planes (Hr, Wr).
+template <bool FIELD, bool RECON, int TH, int TW, int NP, class Front>
+int launch(const Planes& p, const Front& in, int n_mb, int mbw, int Hr,
+           int Wr, int bidir, void* stream) {
   if (n_mb > 0) {
     constexpr int G = mbs_per_group(TW);
     constexpr long long TPG = TH * (TW / 8) * NP * G;  // threads per group
     const long long groups = (n_mb + G - 1) / G;
     const int blocks = (int)((groups * TPG + kThreads - 1) / kThreads);
-    const Planes p = mp2v::planes_of(ptrs);
-    const DirMeta fm = mp2v::dir_meta(ptrs, 0), bm = mp2v::dir_meta(ptrs, 1);
-    const int32_t* modes = mp2v::modes_of(ptrs);
     cudaStream_t s = (cudaStream_t)stream;
     if (bidir)
-      mc_seg_kernel<TH, TW, NP, true, FIELD, RECON>
-          <<<blocks, kThreads, 0, s>>>(p, fm, bm, modes, n_mb, mbw, Hr,
-                                       Wr >> 2);
+      mc_seg_kernel<TH, TW, NP, true, FIELD, RECON, Front>
+          <<<blocks, kThreads, 0, s>>>(p, in, n_mb, mbw, Hr, Wr >> 2);
     else
-      mc_seg_kernel<TH, TW, NP, false, FIELD, RECON>
-          <<<blocks, kThreads, 0, s>>>(p, fm, bm, modes, n_mb, mbw, Hr,
-                                       Wr >> 2);
+      mc_seg_kernel<TH, TW, NP, false, FIELD, RECON, Front>
+          <<<blocks, kThreads, 0, s>>>(p, in, n_mb, mbw, Hr, Wr >> 2);
   }
   return (int)cudaGetLastError();
+}
+
+// Pointer order: csrc/mc_ptrs.cuh.  The one-plane forms read only index 0
+// of each plane pair (K8: out[0] is the word plane, res unread); the frame
+// forms leave the field tuples unread (null).
+template <bool FIELD, bool RECON, int TH, int TW, int NP>
+int launch_vec(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
+               int bidir, void* stream) {
+  const VecFront<FIELD> in{mp2v::dir_meta(ptrs, 0), mp2v::dir_meta(ptrs, 1),
+                           mp2v::modes_of(ptrs)};
+  return launch<FIELD, RECON, TH, TW, NP>(mp2v::planes_of(ptrs), in, n_mb,
+                                          mbw, Hr, Wr, bidir, stream);
 }
 
 // The luma forms take 16x16 tiles; the U+V forms and K8 the chroma tile of
@@ -227,17 +363,54 @@ int launch(const void* const* ptrs, int n_mb, int mbw, int Hr, int Wr,
 template <bool FIELD, bool RECON, int NP>
 int launch_tile(MP2V_MC_ARGS) {
   if (th == 16 && tw == 16)
-    return launch<FIELD, RECON, 16, 16, NP>(ptrs, n_mb, mbw, Hr, Wr, bidir,
-                                            stream);
+    return launch_vec<FIELD, RECON, 16, 16, NP>(ptrs, n_mb, mbw, Hr, Wr,
+                                                bidir, stream);
   if constexpr (NP == 2 || !RECON) {
     if (th == 8 && tw == 8)
-      return launch<FIELD, RECON, 8, 8, NP>(ptrs, n_mb, mbw, Hr, Wr, bidir,
-                                            stream);
+      return launch_vec<FIELD, RECON, 8, 8, NP>(ptrs, n_mb, mbw, Hr, Wr,
+                                                bidir, stream);
     if (th == 16 && tw == 8)
-      return launch<FIELD, RECON, 16, 8, NP>(ptrs, n_mb, mbw, Hr, Wr, bidir,
-                                             stream);
+      return launch_vec<FIELD, RECON, 16, 8, NP>(ptrs, n_mb, mbw, Hr, Wr,
+                                                 bidir, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The blocks form (pointer order: csrc/mc_ptrs.cuh) at one tile.  Its
+// Planes hold the grid and the rows where the residual pair would be;
+// BlockFront reads them, the kernel body never.
+template <bool FIELD, int TH, int TW, int NP>
+int launch_blocks(const void* const* ptrs, int n_mb, int mb0, int mbw,
+                  int bpm, int Hr, int Wr, int bidir, void* stream) {
+  const BlockFront<TH, TW, NP, FIELD> in{(const int16_t*)ptrs[4],
+                                         (const int16_t*)ptrs[5], bpm, mb0,
+                                         mbw};
+  return launch<FIELD, true, TH, TW, NP>(mp2v::planes_of(ptrs), in, n_mb,
+                                         mbw, Hr, Wr, bidir, stream);
+}
+
+// The blocks form's tile from the chroma format (cf: 1 4:2:0, 2 4:2:2,
+// 3 4:4:4, as headers.py): luma 16x16 (NP = 1), U and V 8x8, 16x8 or
+// 16x16.  The rows must be the form's: 5 columns for the frame form, 9 for
+// the field form.  Anything else is refused before a launch.
+template <bool FIELD, int NP>
+int launch_blocks_cf(MP2V_MC_BLOCKS_ARGS) {
+  if (cols != (FIELD ? 9 : 5) || cf < 1 || cf > 3 || mb0 < 0 || mbw <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int bpm = 4 + 2 * (cf == 1 ? 1 : cf == 2 ? 2 : 4);
+  if constexpr (NP == 1) {
+    return launch_blocks<FIELD, 16, 16, 1>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
+                                           bidir, stream);
+  } else {
+    if (cf == 1)
+      return launch_blocks<FIELD, 8, 8, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
+                                           bidir, stream);
+    if (cf == 2)
+      return launch_blocks<FIELD, 16, 8, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr,
+                                            Wr, bidir, stream);
+    return launch_blocks<FIELD, 16, 16, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
+                                           bidir, stream);
+  }
 }
 
 // A kernel that does nothing, launched with the segment kernels' block
@@ -261,6 +434,22 @@ extern "C" int mp2v_mc_field_luma(MP2V_MC_ARGS) {
 
 extern "C" int mp2v_mc_field_uv(MP2V_MC_ARGS) {
   return launch_tile<true, true, 2>(MP2V_MC_FWD);
+}
+
+extern "C" int mp2v_mc_recon_blocks_luma(MP2V_MC_BLOCKS_ARGS) {
+  return launch_blocks_cf<false, 1>(MP2V_MC_BLOCKS_FWD);
+}
+
+extern "C" int mp2v_mc_recon_blocks_uv(MP2V_MC_BLOCKS_ARGS) {
+  return launch_blocks_cf<false, 2>(MP2V_MC_BLOCKS_FWD);
+}
+
+extern "C" int mp2v_mc_field_blocks_luma(MP2V_MC_BLOCKS_ARGS) {
+  return launch_blocks_cf<true, 1>(MP2V_MC_BLOCKS_FWD);
+}
+
+extern "C" int mp2v_mc_field_blocks_uv(MP2V_MC_BLOCKS_ARGS) {
+  return launch_blocks_cf<true, 2>(MP2V_MC_BLOCKS_FWD);
 }
 
 extern "C" int mp2v_mc_swar_field(MP2V_MC_ARGS) {

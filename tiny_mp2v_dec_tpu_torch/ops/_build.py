@@ -46,6 +46,13 @@ MC_PTRS = 27
 # the MC entry points' arguments: the pointer array, tile rows, tile
 # columns, n_mb, mb_width, Hr, Wr, bidir, stream
 _MC = [C.POINTER(_P)] + [_I] * 7 + [_P]
+# length of the pointer array of the blocks form of K2/K3/K4
+# (mp2v_mc_{recon,field}_blocks_{luma,uv}; layout in csrc/mc_ptrs.cuh):
+# ref0[2], ref1[2], the residual block grid, the metadata rows, out[2]
+MC_BLOCKS_PTRS = 8
+# their arguments: the pointer array, metadata columns, chroma format,
+# n_mb, the first MB, mb_width, Hr, Wr, bidir, stream
+_MC_BLOCKS = [C.POINTER(_P)] + [_I] * 8 + [_P]
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "mp2v_idct8x8": [_P, _P, _I, _P],
@@ -53,6 +60,10 @@ _SIGNATURES = {
     "mp2v_mc_recon_uv": _MC,
     "mp2v_mc_field_luma": _MC,
     "mp2v_mc_field_uv": _MC,
+    "mp2v_mc_recon_blocks_luma": _MC_BLOCKS,
+    "mp2v_mc_recon_blocks_uv": _MC_BLOCKS,
+    "mp2v_mc_field_blocks_luma": _MC_BLOCKS,
+    "mp2v_mc_field_blocks_uv": _MC_BLOCKS,
     "mp2v_mc_roll_luma": _MC,
     "mp2v_mc_roll_uv": _MC,
     "mp2v_mc_swar": _MC,

@@ -27,6 +27,17 @@ read the references as 32-bit words and the residual 8 pixels at a time,
 so on the card they raise unless the references are 4-byte aligned with
 ``Wr % 4 == 0`` and each residual plane is 16-byte aligned.
 
+The decoder's ``mxu`` path takes the blocks form of K2/K3/K4:
+:func:`fused_mc_recon_blocks` (luma) and :func:`fused_mc_recon_uv_blocks`
+(U and V) read a picture's int16 metadata rows as the chunk blob carries
+them (``ops/recon.py`` ``pack_meta2``: 5 columns, or 9 with field motion,
+which selects the field form) and the IDCT's residual block grid
+``(n_mb * blocks_per_mb, 64)`` int16, and each kernel thread derives its
+MB's mode, positions, window starts, phases, field units and residual row
+itself.  Their plain versions are the per-picture PyTorch glue that turns
+those two inputs into the vector form's (:func:`blocks_to_vectors`),
+then the vector form's plain versions.
+
 The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
 :mod:`.recon`) have their kernels here too:
 
@@ -55,6 +66,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..headers import CHROMA_420
+from ..tokenizer.types import CHROMA_INFO
 from . import _build
 from .mc import (field_views, gather_windows, gather_windows_fields,
                  halfpel_select, mc_bidir_tiles, pad_for_mc)
@@ -91,6 +104,108 @@ def mc_field_meta(pos_y, pos_x, mvc_dir, mvfs_dir, H: int, W: int,
         c = 2 * syf + mvfs_dir[:, r].to(torch.int32) - r
         out += [c.to(torch.int32), sx.to(torch.int32), ph.to(torch.int32)]
     return tuple(out)
+
+
+# ----------------------------------------------------------------------
+# the blocks form's inputs as the vector form's: the per-picture glue of
+# the plain versions of the blocks form, and of the roll and swar paths
+# (ops/recon.py)
+
+
+def _tiles_from_blocks(blocks, rows, cols, interleave_mask):
+    """(n, rows*cols, 8, 8) spatial-row-major blocks -> (n, rows*8, cols*8)
+    tiles, with per-MB field interleave (dct_type) selected by mask."""
+    n = blocks.shape[0]
+    grid = blocks.reshape(n, rows, cols, 8, 8)
+    normal = grid.permute(0, 1, 3, 2, 4).reshape(n, rows * 8, cols * 8)
+    if rows == 1 or interleave_mask is None:
+        return normal
+    top = grid[:, 0].permute(0, 2, 1, 3).reshape(n, 8, cols * 8)
+    bot = grid[:, 1].permute(0, 2, 1, 3).reshape(n, 8, cols * 8)
+    field = torch.stack([top, bot], dim=2).reshape(n, 16, cols * 8)
+    return torch.where(interleave_mask[:, None, None], field, normal)
+
+
+def _plane_from_tiles(tiles, mb_h, mb_w, th, tw):
+    return tiles.reshape(mb_h, mb_w, th, tw).permute(0, 2, 1, 3).reshape(
+        mb_h * th, mb_w * tw)
+
+
+def _scale_mv(mv, cf):
+    """Vectorized chroma MV derivation, frame and field vectors alike;
+    mv: (..., 2) [x, y] int16."""
+    mvx, mvy = mv[..., 0], mv[..., 1]
+    if cf < 3:
+        mvx = mvx >> 1
+    if cf < 2:
+        mvy = mvy >> 1
+    return torch.stack([mvx, mvy], dim=-1)
+
+
+def _unpack_meta2(meta, field_support: bool):
+    """(n, cols) metadata -> (dct_type, fwd, bwd, field_pred, coded) bool
+    vectors, the (n, units, 2:dir, 2:xy) int16 MVs (one unit without field
+    support, two with) and the (n, 2:unit, 2:dir) motion_vertical_field
+    selects (``None`` without field support)."""
+    n = meta.shape[0]
+    flags = meta[:, 0]
+    if field_support:
+        mvfs = torch.stack([(flags >> (5 + b)) & 1 for b in range(4)],
+                           dim=-1).reshape(n, 2, 2)
+        mv = meta[:, 1:9].reshape(n, 2, 2, 2)
+    else:
+        mvfs = None
+        mv = meta[:, 1:5].reshape(n, 1, 2, 2)
+    return ((flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
+            (flags & 8) != 0, (flags & 16) != 0, mv, mvfs)
+
+
+def blocks_to_vectors(ref, dense, meta, chroma_format: int, mbw: int,
+                      mb0: int = 0, uv: bool = False):
+    """The vector form's inputs for one call of the blocks form: luma, or
+    with ``uv`` U and V.  ``dense``: the (n_mb * blocks_per_mb, 64) int16
+    residual block grid; ``meta``: the (n_mb, 5 or 9) int16 metadata rows
+    (9: field motion); MB ``i`` is MB ``mb0 + i`` of a picture ``mbw`` MBs
+    wide; ``ref``: a reference plane of the component, whose shape the
+    window starts are clamped to.  Returns (residual planes — one, or U
+    and V — the vectors ``(syf, sxf, phf, syb, sxb, phb, mode, fld_f,
+    fld_b)``, the field tuples ``None`` without field motion, tile rows,
+    tile columns)."""
+    fs = meta.shape[1] == 9
+    dct_type, fwd, bwd, field_pred, coded, mv, mvfs = _unpack_meta2(meta,
+                                                                    fs)
+    n = meta.shape[0]
+    xs, ys, n_cb = CHROMA_INFO[chroma_format]
+    residual = dense.view(n, 4 + 2 * n_cb, 8, 8)
+    mode = (fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
+            + 4 * coded.to(torch.int32))
+    if fs:
+        mode = mode + 8 * field_pred.to(torch.int32)
+    g = mb0 + torch.arange(n, dtype=torch.int32, device=meta.device)
+    py, px = (g // mbw) * 16, (g % mbw) * 16
+    if uv:
+        h, w = 16 >> ys, 16 >> xs
+        py, px = py >> ys, px >> xs
+        # U and V share the scaled MVs (planar, so no doubled sx)
+        mv = _scale_mv(mv, chroma_format)
+        # field DCT interleaves chroma rows too where a chroma block column
+        # spans the MB's 16 rows (4:2:2, 4:4:4)
+        inter = dct_type if chroma_format != CHROMA_420 else None
+        blocks = (residual[:, 4:4 + n_cb], residual[:, 4 + n_cb:])
+    else:
+        h = w = 16
+        inter = dct_type
+        blocks = (residual[:, :4],)
+    res = tuple(_plane_from_tiles(_tiles_from_blocks(b, h // 8, w // 8,
+                                                     inter),
+                                  n // mbw, mbw, h, w) for b in blocks)
+    H, W = ref.shape
+    vecs = [*mc_meta(py, px, mv[:, 0, 0, 0], mv[:, 0, 0, 1], H, W, h, w),
+            *mc_meta(py, px, mv[:, 0, 1, 0], mv[:, 0, 1, 1], H, W, h, w),
+            mode]
+    vecs += ([mc_field_meta(py, px, mv[:, :, s], mvfs[:, :, s], H, W, h, w)
+              for s in range(2)] if fs else [None, None])
+    return res, vecs, h, w
 
 
 # ----------------------------------------------------------------------
@@ -159,6 +274,27 @@ def fused_mc_recon_uv_ref(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb,
                            sxb, phb, mode, fld_f, fld_b, h=h, w=w,
                            bidir=bidir)
         for k in range(2))
+
+
+def fused_mc_recon_blocks_ref(ref0, ref1, dense, meta, *,
+                              chroma_format: int, mbw: int, mb0: int = 0,
+                              bidir: bool = True):
+    """Plain PyTorch version of the blocks form's luma on any device:
+    :func:`blocks_to_vectors`, then :func:`fused_mc_recon_ref`."""
+    (res,), vecs, h, w = blocks_to_vectors(ref0, dense, meta, chroma_format,
+                                           mbw, mb0)
+    return fused_mc_recon_ref(ref0, ref1, res, *vecs, h=h, w=w, bidir=bidir)
+
+
+def fused_mc_recon_uv_blocks_ref(ref0, ref1, dense, meta, *,
+                                 chroma_format: int, mbw: int, mb0: int = 0,
+                                 bidir: bool = True):
+    """Plain PyTorch version of the blocks form's U and V on any device:
+    :func:`blocks_to_vectors`, then :func:`fused_mc_recon_uv_ref`."""
+    res, vecs, h, w = blocks_to_vectors(ref0[0], dense, meta, chroma_format,
+                                        mbw, mb0, uv=True)
+    return fused_mc_recon_uv_ref(ref0, ref1, res, *vecs, h=h, w=w,
+                                 bidir=bidir)
 
 
 # ----------------------------------------------------------------------
@@ -501,6 +637,106 @@ def fused_mc_recon_uv(ref0, ref1, res, syf, sxf, phf, syb, sxb, phb, mode,
     return _launch(f"mp2v_mc_{form}_uv", f"mc_{form}_uv", tuple(ref0),
                    tuple(ref1), tuple(res),
                    (syf, sxf, phf, syb, sxb, phb, mode, *fld), h, w, bidir)
+
+
+def _check_blocks(entry, refs0, refs1, dense, meta, chroma_format, mbw,
+                  mb0, h, w):
+    """Check the arguments of the blocks form (:func:`fused_mc_recon_blocks`,
+    :func:`fused_mc_recon_uv_blocks`) for (h x w) tiles on either device —
+    attribute reads only, nothing per MB; returns the output planes' (H, W)
+    and the reference planes' (Hr, Wr)."""
+    if chroma_format not in CHROMA_INFO:
+        raise ValueError(f"{entry}: chroma format {chroma_format} is not "
+                         f"one of {sorted(CHROMA_INFO)}")
+    dev = refs0[0].device
+    if (meta.device != dev or meta.dtype != torch.int16 or meta.dim() != 2
+            or meta.shape[1] not in (5, 9) or not meta.is_contiguous()):
+        raise ValueError(f"{entry}: metadata rows must be contiguous "
+                         f"(n_mb, 5) or (n_mb, 9) int16 on {dev}")
+    n = meta.shape[0]
+    rows = n * (4 + 2 * CHROMA_INFO[chroma_format][2])
+    if (dense.device != dev or dense.dtype != torch.int16
+            or tuple(dense.shape) != (rows, 64) or not dense.is_contiguous()):
+        raise ValueError(f"{entry}: the residual block grid must be "
+                         f"contiguous ({rows}, 64) int16 on {dev}")
+    if dense.data_ptr() % 16:
+        raise ValueError(f"{entry}: the residual block grid must be 16-byte "
+                         f"aligned")
+    if mbw <= 0 or n % mbw or mb0 < 0 or mb0 % mbw:
+        raise ValueError(f"{entry}: {n} MBs from MB {mb0} are not whole "
+                         f"rows of {mbw} MBs")
+    Hr, Wr = refs0[0].shape
+    for x in (*refs0, *refs1):
+        if (x.device != dev or x.dtype != torch.uint8
+                or tuple(x.shape) != (Hr, Wr) or not x.is_contiguous()):
+            raise ValueError(f"{entry}: reference planes must be contiguous "
+                             f"({Hr}, {Wr}) uint8 on {dev}")
+        if Wr % 4 or x.data_ptr() % 4:
+            raise ValueError(f"{entry}: reference planes must be 4-byte "
+                             f"aligned with a width divisible by 4")
+    H, W = n // mbw * h, mbw * w
+    if mb0 // mbw * h + H > Hr or W > Wr:
+        raise ValueError(f"{entry}: {H}x{W} output from MB row "
+                         f"{mb0 // mbw} lies past the {Hr}x{Wr} reference")
+    return H, W, Hr, Wr
+
+
+def _blocks(entry, uv, ref0, ref1, dense, meta, chroma_format, mbw, mb0,
+            bidir):
+    """Check the blocks form's arguments and run it: on the CPU its plain
+    version, on ``cuda`` kernel ``mp2v_mc_{recon,field}_blocks_{luma,uv}``
+    — the field form for 9-column rows — on the current stream, counted in
+    ``_build.LAUNCHES`` under the entry's name less ``mp2v_``.  Returns
+    the output planes, one or (U, V)."""
+    refs0, refs1 = (tuple(ref0), tuple(ref1)) if uv else ((ref0,), (ref1,))
+    xs, ys, _ = CHROMA_INFO.get(chroma_format, (0, 0, 0))
+    h, w = (16 >> ys, 16 >> xs) if uv else (16, 16)
+    H, W, Hr, Wr = _check_blocks(entry, refs0, refs1, dense, meta,
+                                 chroma_format, mbw, mb0, h, w)
+    kw = dict(chroma_format=chroma_format, mbw=mbw, mb0=mb0, bidir=bidir)
+    if _device_type(entry, dense) == "cpu":
+        if uv:
+            return fused_mc_recon_uv_blocks_ref(refs0, refs1, dense, meta,
+                                                **kw)
+        return (fused_mc_recon_blocks_ref(ref0, ref1, dense, meta, **kw),)
+    dev = dense.device
+    outs = tuple(torch.empty((H, W), dtype=torch.uint8, device=dev)
+                 for _ in refs0)
+    name = (f"mc_{'field' if meta.shape[1] == 9 else 'recon'}_blocks_"
+            f"{'uv' if uv else 'luma'}")
+    ptrs = [x.data_ptr() for x in (refs0[0], refs0[-1], refs1[0], refs1[-1],
+                                   dense, meta, outs[0], outs[-1])]
+    rc = getattr(_build.kernel_library(), f"mp2v_{name}")(
+        (ctypes.c_void_p * _build.MC_BLOCKS_PTRS)(*ptrs), meta.shape[1],
+        chroma_format, meta.shape[0], mb0, mbw, Hr, Wr, int(bidir),
+        _build.stream_handle(dev))
+    _build.check(f"mp2v_{name}", rc)
+    _build.LAUNCHES[name] += 1
+    return outs
+
+
+def fused_mc_recon_blocks(ref0, ref1, dense, meta, *, chroma_format: int,
+                          mbw: int, mb0: int = 0, bidir: bool = True):
+    """Reconstruct one luma plane from a picture's residual block grid and
+    metadata rows (the blocks form, see the module docstring): the
+    (n_mb / mbw * 16, mbw * 16) uint8 plane of the rows' MBs, which are MBs
+    ``mb0`` on of a picture ``mbw`` MBs wide (``mb0 > 0``: a band of whole
+    MB rows; the window starts stay in the whole reference).  9-column rows
+    take the field form.  CPU tensors: the plain version; CUDA tensors:
+    the kernel, which needs the block grid 16-byte aligned and the
+    references 4-byte aligned with a width divisible by 4; any other
+    device raises.  Either device refuses what the kernel would."""
+    return _blocks("fused_mc_recon_blocks", False, ref0, ref1, dense, meta,
+                   chroma_format, mbw, mb0, bidir)[0]
+
+
+def fused_mc_recon_uv_blocks(ref0, ref1, dense, meta, *, chroma_format: int,
+                             mbw: int, mb0: int = 0, bidir: bool = True):
+    """:func:`fused_mc_recon_blocks` for both chroma planes in one launch:
+    ``ref0``/``ref1`` are (U, V) pairs at the chroma format's tile (8x8,
+    16x8 or 16x16); returns the (U, V) pair."""
+    return _blocks("fused_mc_recon_uv_blocks", True, ref0, ref1, dense, meta,
+                   chroma_format, mbw, mb0, bidir)
 
 
 def _frame_only(name, fld_f, fld_b):

@@ -16,10 +16,13 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
    launch, and the residual blocks land in each picture's dense block
    grid;
 3. :meth:`GopRecon._gop` loops over the pictures in Python: per picture
-   the residual is laid out as planes and kernels K2 (luma) and K3 (U+V)
-   predict, add and saturate — or, in a chunk with field-predicted MBs
-   (``field_support=True``), their field form K4; the reference list is
-   updated on the host, where picture types are known.
+   kernels K2 (luma) and K3 (U+V) predict, add and saturate — or, in a
+   chunk with field-predicted MBs (``field_support=True``), their field
+   form K4 — in their blocks form, which reads the picture's metadata rows
+   and residual block grid as the blob's decode leaves them, so that a
+   picture takes these two launches and the three copies that pack its
+   frame; the reference list is updated on the host, where picture types
+   are known.
 
 The MC kernels are those of the JAX package's ``mc_impl`` (see
 :func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
@@ -54,22 +57,28 @@ from ..runtime.spans import Spans
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from .idct import idct_blocks, idct_blocks_ref
-from .mc_fused import (fused_mc_pred_swar_field,
+from .mc_fused import (_plane_from_tiles, _scale_mv, _tiles_from_blocks,
+                       _unpack_meta2, fused_mc_pred_swar_field,
                        fused_mc_pred_swar_field_ref, fused_mc_pred_swar_yuv,
-                       fused_mc_pred_swar_yuv_ref, fused_mc_recon,
-                       fused_mc_recon_ref,
-                       fused_mc_recon_roll, fused_mc_recon_uv,
-                       fused_mc_recon_uv_ref, fused_mc_recon_uv_roll,
-                       mc_field_meta, mc_meta, unpack_words)
+                       fused_mc_pred_swar_yuv_ref, fused_mc_recon_blocks,
+                       fused_mc_recon_blocks_ref, fused_mc_recon_ref,
+                       fused_mc_recon_roll, fused_mc_recon_uv_blocks,
+                       fused_mc_recon_uv_blocks_ref, fused_mc_recon_uv_ref,
+                       fused_mc_recon_uv_roll, mc_field_meta, mc_meta,
+                       unpack_words)
 
 MC_IMPLS = ("mxu", "roll", "swar")
 _PLAIN = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
-# (impl, field support) -> (kernel wrappers, plain versions): (luma, U+V)
-# pairs, or under swar the one prediction function: of a whole picture, or
-# under field support of one component
+_BLOCKS = ((fused_mc_recon_blocks, fused_mc_recon_uv_blocks),
+           (fused_mc_recon_blocks_ref, fused_mc_recon_uv_blocks_ref))
+# (impl, field support) -> (kernel wrappers, plain versions): under mxu the
+# blocks form's (luma, U+V), which reads the metadata rows and the residual
+# block grid; under roll the (luma, U+V) pair of the vector form; under
+# swar the one prediction function: of a whole picture, or under field
+# support of one component
 _MC_FNS = {
-    ("mxu", False): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
-    ("mxu", True): ((fused_mc_recon, fused_mc_recon_uv), _PLAIN),
+    ("mxu", False): _BLOCKS,
+    ("mxu", True): _BLOCKS,
     ("roll", False): ((fused_mc_recon_roll, fused_mc_recon_uv_roll), _PLAIN),
     ("roll", True): (None, _PLAIN),
     ("swar", False): (fused_mc_pred_swar_yuv, fused_mc_pred_swar_yuv_ref),
@@ -92,36 +101,6 @@ def resolve_mc_impl(mc_impl: str | None, field_support: bool) -> str:
     if field_support and impl == "roll" and mc_impl is None:
         return "mxu"
     return impl
-
-
-def _tiles_from_blocks(blocks, rows, cols, interleave_mask):
-    """(n, rows*cols, 8, 8) spatial-row-major blocks -> (n, rows*8, cols*8)
-    tiles, with per-MB field interleave (dct_type) selected by mask."""
-    n = blocks.shape[0]
-    grid = blocks.reshape(n, rows, cols, 8, 8)
-    normal = grid.permute(0, 1, 3, 2, 4).reshape(n, rows * 8, cols * 8)
-    if rows == 1 or interleave_mask is None:
-        return normal
-    top = grid[:, 0].permute(0, 2, 1, 3).reshape(n, 8, cols * 8)
-    bot = grid[:, 1].permute(0, 2, 1, 3).reshape(n, 8, cols * 8)
-    field = torch.stack([top, bot], dim=2).reshape(n, 16, cols * 8)
-    return torch.where(interleave_mask[:, None, None], field, normal)
-
-
-def _plane_from_tiles(tiles, mb_h, mb_w, th, tw):
-    return tiles.reshape(mb_h, mb_w, th, tw).permute(0, 2, 1, 3).reshape(
-        mb_h * th, mb_w * tw)
-
-
-def _scale_mv(mv, cf):
-    """Vectorized chroma MV derivation, frame and field vectors alike;
-    mv: (..., 2) [x, y] int16."""
-    mvx, mvy = mv[..., 0], mv[..., 1]
-    if cf < 3:
-        mvx = mvx >> 1
-    if cf < 2:
-        mvy = mvy >> 1
-    return torch.stack([mvx, mvy], dim=-1)
 
 
 # Compact chunk-path metadata, as in the JAX package: one flags column
@@ -152,24 +131,6 @@ def pack_meta2(tokens: PictureTokens, field_support: bool,
         meta[:, 1:5] = tokens.mv[:, 0].reshape(n, 4)
     meta[:, 0] = flags
     return meta
-
-
-def _unpack_meta2(meta, field_support: bool):
-    """(n, cols) metadata -> (dct_type, fwd, bwd, field_pred, coded) bool
-    vectors, the (n, units, 2:dir, 2:xy) int16 MVs (one unit without field
-    support, two with) and the (n, 2:unit, 2:dir) motion_vertical_field
-    selects (``None`` without field support)."""
-    n = meta.shape[0]
-    flags = meta[:, 0]
-    if field_support:
-        mvfs = torch.stack([(flags >> (5 + b)) & 1 for b in range(4)],
-                           dim=-1).reshape(n, 2, 2)
-        mv = meta[:, 1:9].reshape(n, 2, 2, 2)
-    else:
-        mvfs = None
-        mv = meta[:, 1:5].reshape(n, 1, 2, 2)
-    return ((flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
-            (flags & 8) != 0, (flags & 16) != 0, mv, mvfs)
 
 
 def _ladder(n: int, lo: int = 2048) -> int:
@@ -242,19 +203,32 @@ class DeviceRecon:
         n0, n = row0 * self.geom.mb_width, mbh_l * self.geom.mb_width
         return pos[0][n0:n0 + n], pos[1][n0:n0 + n]
 
-    def _recon_from_residual(self, residual, dct_type, fwd, bwd,
-                             field_pred, coded, mv, mvfs,
-                             r0y, r0u, r0v, r1y, r1u, r1v,
-                             bidir: bool = True, band=None):
-        """residual: (n_mb, blocks_per_mb, 8, 8) int16 blocks; mv:
-        (n_mb, units, 2:dir, 2:xy) int16 with two units (and mvfs
-        (n_mb, 2:unit, 2:dir)) under field support, else one; returns the
-        reconstructed (y, u, v) planes.  ``band=(row0, mbh_local)``
-        reconstructs only those MB rows (the row-sharded path's band): the
-        residual and the per-MB vectors cover the band's MBs, the reference
-        planes stay whole (motion reaches anywhere in them), and the planes
-        returned are the band's rows."""
-        cf = self.geom.chroma_format
+    def _recon_from_residual(self, dense, meta, r0y, r0u, r0v, r1y, r1u,
+                             r1v, bidir: bool = True, band=None):
+        """dense: the picture's (n_mb * blocks_per_mb, 64) int16 residual
+        block grid; meta: its (n_mb, cols) int16 metadata rows
+        (:func:`pack_meta2`); returns the reconstructed (y, u, v) planes.
+        ``band=(row0, mbh_local)`` reconstructs only those MB rows (the
+        row-sharded path's band): the grid and the rows cover the band's
+        MBs, the reference planes stay whole (motion reaches anywhere in
+        them), and the planes returned are the band's rows.  Under ``mxu``
+        the blocks form takes both inputs as they are, one launch for luma
+        and one for U and V; ``roll`` and ``swar`` lay them out as their
+        kernels' vectors and planes first (:meth:`_planes`)."""
+        geom = self.geom
+        if self.mc_impl == "mxu":
+            luma_fn, uv_fn = self._mc_fns
+            kw = dict(chroma_format=geom.chroma_format, mbw=geom.mb_width,
+                      mb0=0 if band is None else band[0] * geom.mb_width,
+                      bidir=bidir)
+            luma = luma_fn(r0y, r1y, dense, meta, **kw)
+            u, v = uv_fn((r0u, r0v), (r1u, r1v), dense, meta, **kw)
+            return luma, u, v
+        n = meta.shape[0]
+        dct_type, fwd, bwd, field_pred, coded, mv, mvfs = _unpack_meta2(
+            meta, self.field_support)
+        residual = dense.view(n, geom.blocks_per_mb, 8, 8)
+        cf = geom.chroma_format
         xs, ys, n_cb = CHROMA_INFO[cf]
         c_rows, c_cols = (16 >> ys) // 8, (16 >> xs) // 8
         # field DCT interleaves chroma rows too where a chroma block
@@ -273,10 +247,12 @@ class DeviceRecon:
 
     def _planes(self, res, refs, fwd, bwd, field_pred, coded, mv, mvfs,
                 bidir: bool = True, band=None):
-        """Fused-kernel reconstruction: per component, the int16 residual in
-        plane layout, then one launch for luma and one for U and V together
-        (MC, bidir average, residual add, saturation and uncoded masking):
-        K2 and K3, or K4 under field support; K5 and K6 under ``roll``.
+        """Fused-kernel reconstruction of ``roll`` and ``swar`` from the
+        unpacked metadata: per component, the int16 residual in plane
+        layout, then under ``roll`` one launch for luma and one for U and V
+        together (MC, bidir average, residual add, saturation and uncoded
+        masking): K5 and K6 (or, with field support and no kernel, the
+        plain version of K2/K3's vector form).
         Under ``swar``, one prediction launch for the picture's three
         components (K7), or under field support one per component (K8), and
         a plain PyTorch epilogue per component.  ``band`` as
@@ -369,9 +345,7 @@ class DeviceRecon:
                 self.device]
         zero = self.zero_planes()
         return self._recon_from_residual(
-            dense[0].view(self.geom.n_mb, self.geom.blocks_per_mb, 8, 8),
-            *_unpack_meta2(meta[0], self.field_support),
-            *(zero if ref0 is None else ref0),
+            dense[0], meta[0], *(zero if ref0 is None else ref0),
             *(zero if ref1 is None else ref1))
 
     def zero_planes(self):
@@ -522,10 +496,8 @@ class GopRecon:
                             dtype=torch.uint8, device=blob.device)
         for i, fl in enumerate(step_flags):
             is_b, is_ip = bool(fl & 1), bool(fl & 2)
-            unpacked = _unpack_meta2(meta[i], self.inner.field_support)
-            residual = dense[i].view(geom.n_mb, geom.blocks_per_mb, 8, 8)
             out = self.inner._recon_from_residual(
-                residual, *unpacked, *(r0 if is_b else r1), *r1,
+                dense[i], meta[i], *(r0 if is_b else r1), *r1,
                 bidir=bidir and is_b)
             packs[i, :ny].view(geom.height, geom.width).copy_(
                 out[0][:geom.height, :geom.width])

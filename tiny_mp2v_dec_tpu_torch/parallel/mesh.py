@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.recon import DeviceRecon, GopRecon, _unpack_meta2, on_device
+from ..ops.recon import DeviceRecon, GopRecon, on_device
 from ..tokenizer.types import PictureGeometry, PictureTokens
 
 
@@ -142,7 +142,6 @@ class RowShardedRecon(_Sharded):
         ``ref1`` (padded ``(y, u, v)`` planes, zero when ``None``): the
         whole padded (y, u, v) planes on the first device."""
         g = self.geom
-        fs = self.inner.field_support
         zero = self.inner.zero_planes()
         ref0 = zero if ref0 is None else tuple(ref0)
         ref1 = zero if ref1 is None else tuple(ref1)
@@ -156,12 +155,11 @@ class RowShardedRecon(_Sharded):
         for k, dev in enumerate(self.devices):
             dense, meta, _ = decoded[dev]
             mb0 = k * n_loc
-            residual = dense[0, mb0 * bpm:(mb0 + n_loc) * bpm].view(
-                n_loc, bpm, 8, 8)
             with on_device(dev):
                 bands.append(self._recons[dev]._recon_from_residual(
-                    residual, *_unpack_meta2(meta[0, mb0:mb0 + n_loc], fs),
-                    *refs[dev], band=(k * self.mbh_local, self.mbh_local)))
+                    dense[0, mb0 * bpm:(mb0 + n_loc) * bpm],
+                    meta[0, mb0:mb0 + n_loc], *refs[dev],
+                    band=(k * self.mbh_local, self.mbh_local)))
         if len(bands) == 1:
             return bands[0]
         dev0 = self.devices[0]
@@ -218,8 +216,6 @@ class StreamBatchRecon(_Sharded):
         """The device half of :meth:`step` for a staged step: upload,
         decode the blob once per distinct device, then each device's
         streams in turn with the production kernels."""
-        g = self.geom
-        fs = self.inner.field_support
         refs0 = self._zero_refs() if refs0 is None else tuple(refs0)
         refs1 = self._zero_refs() if refs1 is None else tuple(refs1)
         decoded = self.transport.upload_decode(staged, self.devices)
@@ -232,9 +228,7 @@ class StreamBatchRecon(_Sharded):
                     r0 = tuple(p[i].to(dev) for p in refs0)
                     r1 = tuple(p[i].to(dev) for p in refs1)
                     out = self._recons[dev]._recon_from_residual(
-                        dense[i].view(g.n_mb, g.blocks_per_mb, 8, 8),
-                        *_unpack_meta2(meta[i], fs),
-                        *(r0 if is_b[i] else r1), *r1)
+                        dense[i], meta[i], *(r0 if is_b[i] else r1), *r1)
                     outs.append(tuple(o.to(dev0) for o in out))
         planes = tuple(torch.stack([o[c] for o in outs]) for c in range(3))
         # the reference-list update, picked on the host

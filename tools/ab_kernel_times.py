@@ -190,12 +190,15 @@ def sass_opcodes(sass: str, kernel: str) -> dict:
             **dict(sorted(out.items(), key=lambda kv: -kv[1]))}
 
 
-# the controls' mangled names: every form of the segment kernel (tile rows,
-# columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8 1 0), K5's
-# warp kernel (bidir), K6's (tile rows, columns, bidir) and K7's
-# one-component word kernel (tile rows, columns, bidir)
+# the controls' mangled names: every vector form of the segment kernel
+# (tile rows, columns, planes, bidir, FIELD, RECON: K2/K3 0 1, K4 1 1, K8
+# 1 0; the front-end parameter VecFront where the source has one, and not
+# the blocks form's BlockFront), K5's warp kernel (bidir), K6's (tile rows,
+# columns, bidir) and K7's one-component word kernel (tile rows, columns,
+# bidir)
 _CONTROLS = (
-    (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)EE",
+    (r"mc_seg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E"
+     r"(?:NS_8VecFrontILb\dEEE)?E",
      "seg {}x{} np={} bidir={} field={} recon={}"),
     (r"mc_roll_luma_kernelILb(\d)EE", "roll luma bidir={}"),
     (r"mc_roll_uv_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
