@@ -10,38 +10,46 @@ come.  The comparison is exact: the limit is 0.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 LIMITS = {"mismatched_bytes": 0}
 
 
 class Comparison:
-    """Frames held against reference rows."""
+    """Frames held against reference rows, one set of rows a channel."""
 
-    def __init__(self, ref_rows):
-        self.ref = ref_rows             # (n, frame bytes) uint8 tensor
+    def __init__(self, *refs):
+        self.refs = refs                # (n, frame bytes) uint8 tensors
         self.bad = 0
         self.frames = 0
         self.failed = 0                 # frames missing or not equal
         self.missing = 0
+        self.bad_by_channel = Counter()
 
-    def frames_against(self, frames, rows) -> None:
+    def frames_against(self, frames, rows, channel: int = 0) -> None:
         """Hold ``frames`` (the port's frames, each with its
-        ``device_buffer()``) against reference rows ``rows``, in order."""
+        ``device_buffer()``) against rows ``rows`` of ``channel``'s
+        reference, in order."""
         import torch
-        width = self.ref.shape[1]
+        ref = self.refs[channel]
+        width = ref.shape[1]
+        bad = 0
         missing = max(0, len(rows) - len(frames))
         self.missing += missing
         self.failed += missing
-        self.bad += missing * width
+        bad += missing * width
         for k, frame in enumerate(frames):
             buf = frame.device_buffer().reshape(-1)
             self.frames += 1
             if k >= len(rows) or buf.numel() != width:
-                self.bad += max(buf.numel(), width)
+                bad += max(buf.numel(), width)
                 self.failed += 1
                 continue
-            diff = int(torch.count_nonzero(buf != self.ref[rows[k]]))
-            self.bad += diff
+            diff = int(torch.count_nonzero(buf != ref[rows[k]]))
+            bad += diff
             self.failed += int(diff > 0)
+        self.bad += bad
+        self.bad_by_channel[channel] += bad
 
     def numbers(self) -> dict:
         return {"mismatched_bytes": self.bad}

@@ -12,10 +12,10 @@ fixed-point one.  Its frames must read as not correct.
     python3 -m mp2v_bench.control --workload NAME --seeds N [N ...]
 
 prints, for each seed, the bytes and frames of the cell's distinct
-pictures in which the control differs from the reference, and the bytes
-of one window's comparison (a decode of the closed loop, a cycle of the
-pictures in the open one), then one JSON line with every reading.  Runs
-on the CPU; no card is needed.
+pictures (every channel's) in which the control differs from the
+reference, and the bytes of one window's comparison (a decode of the
+closed loop, a cycle of the pictures in the open one), then one JSON line
+with every reading.  Runs on the CPU; no card is needed.
 """
 from __future__ import annotations
 
@@ -46,15 +46,18 @@ def float32_idct(coeffs: np.ndarray) -> np.ndarray:
 
 
 def reading(config: dict, seed: int, workers: int) -> dict:
-    """The control against the reference on one seed's stream."""
+    """The control against the reference on one seed's streams, summed
+    over the configuration's channels."""
     with generate.worker_pool(workers) as pool:
-        data = generate.make_stream(config, seed, pool)
-    exact = reference.decode(data, workers)
-    ctrl = reference.decode(data, workers, idct=float32_idct)
-    diff = exact.frames != ctrl.frames
-    return {"seed": seed, "mismatched_bytes": int(diff.sum()),
-            "frames_differing": int(diff.any(axis=1).sum()),
-            "frames": len(exact.frames)}
+        streams = spec.channel_streams(config, seed, pool)
+    exact = reference.decode_all(streams, workers)
+    ctrl = reference.decode_all(streams, workers, idct=float32_idct)
+    diffs = [e.frames != c.frames for e, c in zip(exact, ctrl)]
+    return {"seed": seed,
+            "mismatched_bytes": sum(int(d.sum()) for d in diffs),
+            "frames_differing": sum(int(d.any(axis=1).sum())
+                                    for d in diffs),
+            "frames": sum(len(e.frames) for e in exact)}
 
 
 def main(argv=None) -> int:

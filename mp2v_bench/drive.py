@@ -1,20 +1,38 @@
-"""The one traffic runner: it builds the port's decoder from a traffic
-mix's parameters (``traffic/<name>.json``), warms it up, and drives the
-measured window, in a closed or an open loop.
+"""What every traffic loop shares: the port's decoder built from a traffic
+mix's parameters (``traffic/<name>.json``), the measured window's record
+(:class:`Window`), the sample of what it produced (:class:`Reservoir`),
+and the traced part's start and end with the pause its reading takes.
 
-* ``"loop": "closed"``: whole decodes back to back, each a ``reset()`` and
-  a ``decode`` of the stream (the configuration's pictures ``repeat``
-  times over as one sequence) ended by a synchronize.  The window ends at
-  the synchronize of the decode that crosses its length.
-* ``"loop": "open"``: one picture a ``decode`` call, fed at its due time
-  ``t0 + i / frame rate`` (the configuration's), the pictures cycling; the
-  decoder's renderer synchronizes each frame as it is delivered.  Every
-  picture due in the window is waited for.
+The loops themselves are modules ``loops/<name>.py``, found by the
+traffic mix's ``"loop"`` (``spec.loop``).  Each holds a class ``Loop``,
+a :class:`Runner`, that supplies
 
-The frames of a sample of the window's decodes (closed loop) or pictures
-(open loop), drawn from the seed (:class:`Reservoir`), are kept for the
-comparison with the reference (``check.py``); the others are dropped as a
-consumer would drop them.
+* ``prepare()``: its own state, once the decoder is built (the streams
+  it feeds, its sample);
+* ``warm_up()``: every shape its window uses, each ended by a
+  synchronize;
+* ``window(w, seconds)``: the measured window, filling ``w``; after each
+  decode or picture it calls :meth:`Runner._trace_point`;
+* ``compare(refs, device)``: what its sample kept, held against the
+  references (``reference.Reference``, one a channel), as a
+  ``check.Comparison``.
+
+``loops/closed.py`` (whole decodes back to back) and ``loops/open.py``
+(one picture a call at its due time) drive one channel.  A loop over
+several channels, or any other, is a new file and a traffic mix naming
+it: nothing here changes.
+
+A window's ``stats`` carries every numeric counter of the decoder's
+``stats`` (:func:`add_stats`, :func:`stats_since`), so a new counter of the
+program is read by a new metric file alone.  A traffic mix with
+``"spans": true`` has the decoder's spans recorded over the traced part
+(``Window.spans``: ``runtime/spans.py``'s records).
+
+So a cell with a new loop, a new generator (``streams/<name>.py``, named
+by the configuration's ``"generator"``), a channel list (the
+configuration's ``"channels"``) or a new counter is new files and entries
+alone (``spec.py`` lists them); its name is appended to the ``workloads``
+list of each end-to-end metric it reports, the benchmark's schema.
 """
 from __future__ import annotations
 
@@ -24,14 +42,6 @@ import time
 from collections import Counter
 from dataclasses import dataclass, field
 
-from .streams import generate
-
-# the decoder's host-time counters (MP2VDecoder.stats) the window sums
-STATS = ("pictures", "tokenize_s", "fill_s", "device_s", "output_s")
-# the open loop's feeder spins through the last this many seconds before a
-# picture is due
-SPIN_S = 0.002
-
 
 @dataclass
 class Window:
@@ -39,11 +49,12 @@ class Window:
     frames: int = 0                 # frames delivered in the window
     seconds: float = 0.0            # its length on the host clock
     start_ns: int = 0               # its start on the wall clock (time_ns)
-    stats: dict = field(default_factory=dict)   # sums of STATS
+    # every numeric counter of the decoder's stats over the window
+    stats: dict = field(default_factory=dict)
     latencies_s: list = field(default_factory=list)  # open loop: due->done
     feed_late_s: list = field(default_factory=list)  # open loop: due->fed
     decode_s: list = field(default_factory=list)     # closed loop: each decode
-    # distinct picture (decode index) -> times decoded in the window
+    # (channel, distinct picture by decode index) -> times decoded
     decoded: Counter = field(default_factory=Counter)
     # host phases on the wall clock: (start_ns, end_ns, name)
     phases: list = field(default_factory=list)
@@ -59,6 +70,8 @@ class Window:
     trace_frames: int = 0
     trace_decoded: Counter = field(default_factory=Counter)
     trace_read_s: float = 0.0
+    # the decoder's span records over the traced part ("spans": true)
+    spans: list = None
     bytes_needed: float = 0.0       # roofline.window_bytes, traced part
     peak_bytes_per_s: float = 0.0   # the card's memory rate (roofline)
 
@@ -86,52 +99,68 @@ class Reservoir:
             self.kept[i] = frames
 
 
-def _sum_stats(total: dict, stats: dict) -> None:
-    for k in STATS:
-        total[k] = total.get(k, 0) + stats[k]
+def _numeric(value) -> bool:
+    return isinstance(value, (int, float)) and not isinstance(value, bool)
+
+
+def add_stats(total: dict, stats: dict) -> None:
+    """Add every numeric counter of ``stats`` into ``total``."""
+    for k, v in stats.items():
+        if _numeric(v):
+            total[k] = total.get(k, 0) + v
+
+
+def stats_since(before: dict, after: dict) -> dict:
+    """Every numeric counter's growth from ``before`` to ``after``."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if _numeric(v)}
 
 
 class Runner:
     """The port's decoder for one cell, on ``device`` (``"cuda"`` in a
-    run; the tests drive ``"cpu"``).  ``decoder_cls`` and
-    ``config_cls`` are the port's ``MP2VDecoder`` and
-    ``DecoderConfig``."""
+    run; the tests drive ``"cpu"``), and the window's bookkeeping that
+    every loop shares.  ``configs`` and ``streams`` hold each channel's
+    configuration and stream (``spec.channels``); ``decoder_cls`` and
+    ``config_cls`` are the port's ``MP2VDecoder`` and ``DecoderConfig``.
+    A loop subclasses it (module doc)."""
 
-    def __init__(self, config: dict, traffic: dict, data: bytes, seed: int,
-                 device: str, decoder_cls, config_cls, sync):
-        self.config = config
+    # what the loop's sample (``self.kept``, a Reservoir) is made of, for
+    # the run's log
+    SAMPLED = "items"
+
+    def __init__(self, configs: list, traffic: dict, streams: list,
+                 seed: int, device: str, decoder_cls, config_cls, sync):
+        self.configs = configs
         self.traffic = traffic
+        self.streams = streams
+        self.seed = seed
         self.sync = sync
-        self.n_distinct = config["distinct_pictures"]
         # the MC implementation is read when the decoder builds a recon
         os.environ["MP2V_MC_IMPL"] = traffic["mc_impl"]
         self.dec = decoder_cls(config_cls(device=device, **traffic["decoder"]))
-        if traffic["loop"] == "closed":
-            self.data = generate.repeat_stream(data, traffic["repeat"])
-            self.kept = Reservoir(traffic["sample_decodes"], seed)
-        else:
-            self.units = generate.picture_units(data)
-            self.cycle = generate.cycle_units(self.units)
-            self.fed = 0
-            # of each picture offered: (its decode index, its frames)
-            self.kept = Reservoir(traffic["sample_pictures"], seed)
-            self.dec.renderer = self._rendered
+        self.prepare()
 
-    # -- warm-up -------------------------------------------------------
+    def one_channel(self) -> tuple:
+        """The configuration and stream of a loop that drives one
+        channel; a configuration of several channels needs another."""
+        if len(self.configs) != 1:
+            raise ValueError(
+                f"the {self.traffic['loop']!r} loop drives one channel; the "
+                f"configuration has {len(self.configs)}")
+        return self.configs[0], self.streams[0]
+
+    def prepare(self) -> None:
+        raise NotImplementedError
+
     def warm_up(self) -> None:
-        """Every shape the window uses: ``warmup`` whole decodes (closed
-        loop) or ``warmup`` cycles of the pictures fed back to back (open
-        loop), each ended by a synchronize."""
-        for _ in range(self.traffic["warmup"]):
-            if self.traffic["loop"] == "closed":
-                self.dec.reset()
-                self.dec.decode(self.data)
-            else:
-                for _ in range(self.n_distinct):
-                    self._feed()
-            self.sync()
+        raise NotImplementedError
 
-    # -- the window ----------------------------------------------------
+    def window(self, w: Window, seconds: float) -> None:
+        raise NotImplementedError
+
+    def compare(self, refs: list, device):
+        raise NotImplementedError
+
     def run(self, seconds: float, profiler=None,
             trace_s: float = 0.0) -> Window:
         """The measured window, ``seconds`` long.  With ``profiler``, its
@@ -143,10 +172,9 @@ class Runner:
         self._paused = 0.0
         if profiler is not None:
             profiler.start()
-        if self.traffic["loop"] == "closed":
-            self._closed(w, seconds)
-        else:
-            self._open(w, seconds)
+            if self.traffic.get("spans"):
+                self.dec.spans.start()
+        self.window(w, seconds)
         return w
 
     def _elapsed(self, t0: float) -> float:
@@ -160,6 +188,8 @@ class Runner:
                 not last and self._elapsed(t0) < self._trace_s):
             return
         w.trace_end_ns = time.time_ns()
+        if self.traffic.get("spans"):
+            w.spans = self.dec.spans.stop()
         w.trace_seconds = self._elapsed(t0)
         w.trace_frames = w.frames
         w.trace_decoded = Counter(w.decoded)
@@ -168,76 +198,3 @@ class Runner:
         w.trace_read_s = time.perf_counter() - a
         self._paused += w.trace_read_s
         self._profiler = None
-
-    def _closed(self, w: Window, seconds: float) -> None:
-        per = self.traffic["repeat"] * self.n_distinct
-        t0 = time.perf_counter()
-        w.start_ns = time.time_ns()
-        while True:
-            a = time.time_ns()
-            self.dec.reset()
-            frames = self.dec.decode(self.data)
-            b = time.time_ns()
-            self.sync()
-            c = time.time_ns()
-            w.phases += [(a, b, "host: decode() call"),
-                         (b, c, "host: synchronize after decode")]
-            _sum_stats(w.stats, self.dec.stats)
-            w.decode_s.append((c - a) / 1e9)
-            self.kept.offer(frames)
-            w.frames += len(frames)
-            for i in range(per):
-                w.decoded[i % self.n_distinct] += 1
-            done = self._elapsed(t0) >= seconds
-            self._trace_point(w, t0, done)
-            if done:
-                break
-        w.seconds = self._elapsed(t0)
-
-    def _feed(self) -> list:
-        """Hand the decoder the next picture's unit; returns its frames."""
-        units = self.units if self.fed < self.n_distinct else self.cycle
-        frames = self.dec.decode(units[self.fed % self.n_distinct])
-        self.fed += 1
-        return frames
-
-    def _rendered(self, frame) -> None:
-        self.sync()
-
-    def _open(self, w: Window, seconds: float) -> None:
-        num, den = self.config["frame_rate"]
-        period = den / num
-        due_n = int(seconds / period) + 1
-        before = dict(self.dec.stats)
-        t0 = time.perf_counter()
-        w.start_ns = time.time_ns()
-        for i in range(due_n):
-            # a pause (the profiler's stop) moves the schedule with it
-            due = t0 + self._paused + i * period
-            wait = due - time.perf_counter()
-            if wait > 0:
-                a = time.time_ns()
-                # sleep to within SPIN_S of the due time, then spin: a
-                # sleep alone wakes up late by a share of a millisecond
-                if wait > SPIN_S:
-                    time.sleep(wait - SPIN_S)
-                while time.perf_counter() < due:
-                    pass
-                w.phases.append((a, time.time_ns(),
-                                 "host: waiting for the next picture"))
-            fed = time.perf_counter()
-            fed_ns = time.time_ns()
-            index = self.fed % self.n_distinct
-            # the renderer synchronizes the frame before decode returns
-            frames = self._feed()
-            done = time.perf_counter()
-            w.phases.append((fed_ns, time.time_ns(),
-                             "host: decode() call of one picture"))
-            w.feed_late_s.append(fed - due)
-            w.latencies_s.append(done - due)
-            self.kept.offer((index, frames))
-            w.frames += len(frames)
-            w.decoded[index] += 1
-            self._trace_point(w, t0, i == due_n - 1)
-        w.seconds = self._elapsed(t0)
-        w.stats = {k: self.dec.stats[k] - before[k] for k in STATS}

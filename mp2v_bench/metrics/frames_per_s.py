@@ -1,6 +1,7 @@
-"""frames_per_s (end to end, host clock): every frame decoded in the
-window over the whole window, which ends at the synchronize of the decode
-that crosses its length."""
+"""frames_per_s (host clock; the benchmark reads it per layer, as
+``frames_per_s.tput``): every frame decoded in the window over the whole
+window, which ends at the synchronize of the decode that crosses its
+length."""
 
 
 def read(w):

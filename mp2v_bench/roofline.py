@@ -111,8 +111,10 @@ def picture_bytes(tokens, pct: int) -> int:
     return coeff + refs + out
 
 
-def window_bytes(decoded, tokens, pcts) -> int:
-    """Bytes of a window that decoded distinct picture ``i``
-    ``decoded[i]`` times."""
-    per = {i: picture_bytes(tokens[i], pcts[i]) for i in decoded}
-    return sum(n * per[i] for i, n in decoded.items())
+def window_bytes(decoded, refs) -> int:
+    """Bytes of a window that decoded distinct picture ``i`` of channel
+    ``c`` ``decoded[c, i]`` times, summed over the channels: each
+    channel's pictures are held against its own reference's tokens and
+    coding types (``refs[c]``, a ``reference.Reference``)."""
+    return sum(n * picture_bytes(refs[c].tokens[i], refs[c].pcts[i])
+               for (c, i), n in decoded.items())

@@ -2,19 +2,28 @@
 
     python3 -m mp2v_bench.run --workload NAME --seed N --seconds S --trace 0|1
 
-from the repository root.  The run makes the cell's stream from the seed
-(``streams/``), builds ``tiny_mp2v_dec_tpu_torch``'s decoder as the cell's
-traffic mix says and warms it up (the set-up), drives it for ``--seconds``
-(``drive.py``; with ``--trace 1`` the window's first ``trace.TRACE_S``
-seconds under ``torch.profiler``), then decodes
-the stream with the plain reference (``reference.py``) and compares the
-frames the window produced with it (``check.py``).  Standard error carries
+from the repository root.  The run makes each channel's stream of the
+cell's configuration from the seed (``spec.channel_streams``: the
+generator the configuration names, ``streams/<name>.py``), builds
+``tiny_mp2v_dec_tpu_torch``'s decoder as the cell's traffic mix says and
+warms it up through the traffic's loop (``loops/<name>.py``; the
+set-up), drives it for ``--seconds`` (the window's first
+``trace.TRACE_S`` seconds under ``torch.profiler`` with ``--trace 1``, and
+in every run of a cell with an end-to-end metric whose ``source`` is
+``device_trace``), then decodes
+every channel's stream with the plain reference (``reference.py``) and
+has the loop compare the frames its window kept with them (``check.py``).
+Standard error carries each channel's stream (pictures, bytes, a hash),
 the seconds spent apart from the set-up, the card, and last each compared
 number beside its limit; the last line of standard output is one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones, each read by
 ``metrics/<name>.py``), ``device``, with a trace ``breakdown``, and last
 ``checks``.
+
+Nothing here names a cell, a loop, a generator or a metric: a new cell is
+new files and entries (``spec.py`` says which), its name appended to the
+``workloads`` list of each end-to-end metric it reports.
 
 Without a CUDA card, or with fewer than the cell asks for, the run exits 2
 and prints no result.  It exits 3, with no result, when JAX or the JAX
@@ -73,36 +82,50 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: float = T_START) -> dict:
     """One run of ``cell`` (``spec.Cell``); returns the result object.
     ``device="cpu"`` drives the port's plain versions (the tests)."""
+    import hashlib
+
     import torch
 
     from tiny_mp2v_dec_tpu_torch.runtime.decoder import (DecoderConfig,
                                                           MP2VDecoder)
 
-    from . import check, reference, roofline
+    from . import check, reference, roofline, spec
     from . import trace as tracing
-    from .drive import Runner
-    from .spec import reader
     from .streams import generate
 
     cuda = device == "cuda"
     workers = max(1, min(MAX_WORKERS, os.cpu_count() or 1))
+    configs = spec.channels(cell.config)
     t = time.perf_counter()
     with generate.worker_pool(workers) as pool:
-        data = generate.make_stream(cell.config, seed, pool)
+        streams = spec.channel_streams(cell.config, seed, pool, cell.root)
     gen_s = time.perf_counter() - t
-    log(f"stream: {cell.config['distinct_pictures']} pictures, {len(data)} "
-        f"bytes, made in {gen_s:.3f} s on {workers} processes (not set-up)")
+    for c, (config, data) in enumerate(zip(configs, streams)):
+        log(f"stream of channel {c}: {config['distinct_pictures']} "
+            f"pictures, {len(data)} bytes, sha256 "
+            f"{hashlib.sha256(data).hexdigest()[:16]}")
+    log(f"streams: {len(streams)} made in {gen_s:.3f} s on {workers} "
+        f"processes (not set-up)")
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    runner = Runner(cell.config, cell.traffic, data, seed, device,
-                    MP2VDecoder, DecoderConfig, sync)
+    runner = cell.loop(configs, cell.traffic, streams, seed, device,
+                       MP2VDecoder, DecoderConfig, sync)
     runner.warm_up()
-    profiler = tracing.Profiler() if trace else None
     setup_s = time.perf_counter() - t_start - gen_s
     log(f"set-up: {setup_s:.3f} s, of which {t - t_start:.3f} s before "
         f"the stream (imports), {time.perf_counter() - t - gen_s:.3f} s "
         f"the decoder and its warm-up (CUDA context, kernel libraries "
         f"built or loaded)")
+    # a run traces the window's first seconds with --trace 1, and on the
+    # card also where an end-to-end metric is read from the device trace;
+    # the profiler is the benchmark's, not the program's set-up
+    profiled = trace or (cuda and any(m["source"] == "device_trace"
+                                      for m in cell.end_to_end))
+    profiler = None
+    if profiled:
+        t = time.perf_counter()
+        profiler = tracing.Profiler()
+        log(f"profiler made in {time.perf_counter() - t:.3f} s (not set-up)")
     w = runner.run(seconds, profiler, tracing.TRACE_S)
     w.setup_s = setup_s
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -110,32 +133,29 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         log(f"feed: {len(w.feed_late_s)} pictures due; fed late by ms "
             f"{spread(w.feed_late_s)}; latency ms {spread(w.latencies_s)}")
     if w.decode_s:
-        log(f"decodes: {len(w.decode_s)} in {w.seconds:.4f} s; each, ms "
+        log(f"decodes: {len(w.decode_s)} in {w.seconds:.4f} s, "
+            f"{w.frames / w.seconds:.4f} frames/s; each, ms "
             f"{spread(w.decode_s)}")
     # the program's state goes before the reference runs; the frames the
     # window kept stay for the comparison
-    kept = runner.kept
     runner.dec = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    ref = reference.decode(data, workers)
+    refs = reference.decode_all(streams, workers)
     ref_s = time.perf_counter() - t
-    if cell.traffic["loop"] == "closed":
-        per = cell.traffic["repeat"] * len(ref.pcts)
-        comp = check.closed_loop(kept.kept, ref.display(), per, device)
-        log(f"reference: {len(ref.pcts)} pictures in {ref_s:.3f} s on "
-            f"{workers} processes (not set-up); compared {comp.frames} "
-            f"frames of {len(kept.kept)} of the window's {kept.offered} "
-            f"decodes, drawn from the seed; {comp.missing} missing")
-    else:
-        comp = check.open_loop(kept.kept, ref.frames, device)
-        log(f"reference: {len(ref.pcts)} pictures in {ref_s:.3f} s on "
-            f"{workers} processes (not set-up); compared the frames of "
-            f"{len(kept.kept)} of the window's {kept.offered} pictures, "
-            f"drawn from the seed; {comp.missing} missing")
+    comp = runner.compare(refs, device)
+    kept, runner.kept = runner.kept, None
+    log(f"reference: {'+'.join(str(len(r.pcts)) for r in refs)} pictures "
+        f"in {ref_s:.3f} s on {workers} processes (not set-up); compared "
+        f"{comp.frames} frames of {len(kept.kept)} of the window's "
+        f"{kept.offered} {runner.SAMPLED}, drawn from the seed; "
+        f"{comp.missing} missing")
+    if len(refs) > 1:
+        log("mismatched bytes by channel: " + ", ".join(
+            f"{c}: {comp.bad_by_channel[c]}" for c in range(len(refs))))
     numbers = comp.numbers()
     del kept
 
@@ -144,7 +164,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
            "count": cell.chips, "memory_peak_bytes": peak}
     result = {"correct": check.correct(numbers), "attempted": w.frames,
               "failed": comp.failed, "metrics": {}, "device": dev}
-    if trace and w.trace_events is not None:
+    if profiled and w.trace_events is not None:
         events, w.trace_events = w.trace_events, None
         t = time.perf_counter()
         w.trace = tracing.reduce(events, w.start_ns, w.trace_end_ns,
@@ -158,9 +178,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
                 f"ms before its end; read in {w.trace_read_s:.3f} s (left "
                 f"out of the window), reduced in "
                 f"{time.perf_counter() - t:.3f} s")
-        w.bytes_needed = roofline.window_bytes(w.trace_decoded, ref.tokens,
-                                               ref.pcts)
+        w.bytes_needed = roofline.window_bytes(w.trace_decoded, refs)
         w.peak_bytes_per_s = roofline.PEAK_BYTES_PER_S.get(dev["kind"], 0)
+    if trace and w.trace is not None:
         dev["busy_s"] = w.trace.busy_s
         dev["window_s"] = w.trace.window_s
         result["breakdown"] = {
@@ -168,7 +188,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
                            w.trace.by_name.most_common(10)],
             "idle_gaps": [[n, s] for s, n in w.trace.gaps]}
     for m in (cell.per_layer if trace else cell.end_to_end):
-        value = reader(m["name"])(w)
+        value = spec.reader(m["name"], cell.root)(w)
         if value is not None:
             result["metrics"][m["name"]] = {"value": value,
                                             "unit": m["unit"]}

@@ -343,16 +343,16 @@ def run_seed(cell, seed: int, seconds: float, cost: bool,
     from tiny_mp2v_dec_tpu_torch.runtime.decoder import (DecoderConfig,
                                                           MP2VDecoder)
 
-    from .drive import Runner
+    from . import spec
     from .run import MAX_WORKERS, card_line
-    from .spec import reader
     from .streams import generate
 
     workers = max(1, min(MAX_WORKERS, os.cpu_count() or 1))
     with generate.worker_pool(workers) as pool:
-        data = generate.make_stream(cell.config, seed, pool)
-    runner = Runner(cell.config, cell.traffic, data, seed, "cuda",
-                    MP2VDecoder, DecoderConfig, torch.cuda.synchronize)
+        streams = spec.channel_streams(cell.config, seed, pool, cell.root)
+    runner = cell.loop(spec.channels(cell.config), cell.traffic, streams,
+                       seed, "cuda", MP2VDecoder, DecoderConfig,
+                       torch.cuda.synchronize)
     runner.warm_up()
     runner.dec.spans.start()
     w = runner.run(seconds, tracing.Profiler(), tracing.TRACE_S)
@@ -371,7 +371,7 @@ def run_seed(cell, seed: int, seconds: float, cost: bool,
     if pairs:
         events = aligned(events, pairs)
     for m in cell.per_layer:
-        value = reader(m["name"])(w)
+        value = spec.reader(m["name"], cell.root)(w)
         if value is not None:
             out["metrics"][m["name"]] = value
     out["spans_say"] = quantities(records, w.frames)
@@ -382,7 +382,8 @@ def run_seed(cell, seed: int, seconds: float, cost: bool,
         for a, b, name in gaps(events, lo, hi, w.phases, traced)]
     if w.latencies_s:
         out["live_tail"] = live_tail(records, w,
-                                     generate.picture_types(cell.config))
+                                     cell.generator.picture_types(
+                                         cell.config))
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{cell.name}_{seed}.json")

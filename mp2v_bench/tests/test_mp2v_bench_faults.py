@@ -33,8 +33,8 @@ def _state_unchanged(monkeypatch):
     reconstruction hands back the newer reference planes it was given."""
     from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
 
-    def recon(self, residual, dct_type, fwd, bwd, field_pred, coded, mv,
-              mvfs, r0y, r0u, r0v, r1y, r1u, r1v, bidir=True, band=None):
+    def recon(self, dense, meta, r0y, r0u, r0v, r1y, r1u, r1v, bidir=True,
+              band=None):
         return r1y, r1u, r1v
     monkeypatch.setattr(DeviceRecon, "_recon_from_residual", recon)
 
@@ -119,8 +119,9 @@ def test_sound_run_is_correct(name):
                            for k in check.LIMITS}
     assert list(r)[-1] == "checks"
     assert r["attempted"] > 0
-    assert {m["name"] for m in spec.cell(name).end_to_end} == set(
-        r["metrics"])
+    # the CPU has no device trace: a metric read from it finds nothing
+    assert {m["name"] for m in spec.cell(name).end_to_end
+            if m["source"] != "device_trace"} == set(r["metrics"])
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))

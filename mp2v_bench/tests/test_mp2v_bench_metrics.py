@@ -6,8 +6,8 @@ import time
 import numpy as np
 import pytest
 
-from mp2v_bench import roofline, spec, trace
-from mp2v_bench.drive import Runner, Reservoir, Window
+from mp2v_bench import reference, roofline, spec, trace
+from mp2v_bench.drive import Reservoir, Window
 from mp2v_bench.ref.tokenizer.types import PictureGeometry, PictureTokens
 from mp2v_bench.streams import generate
 
@@ -39,9 +39,9 @@ def closed_window(stall_at):
     config = {"distinct_pictures": FRAMES}
     traffic = {"loop": "closed", "mc_impl": "mxu", "decoder": {},
                "repeat": 1, "sample_decodes": 2}
-    d = Runner(config, traffic, b"", 0, "cpu",
-               lambda cfg: FakeDecoder(cfg, stall_at), lambda **kw: kw,
-               lambda: None)
+    d = spec.loop("closed")([config], traffic, [b""], 0, "cpu",
+                            lambda cfg: FakeDecoder(cfg, stall_at),
+                            lambda **kw: kw, lambda: None)
     return d.run(0.5)
 
 
@@ -138,7 +138,12 @@ def test_roofline_bytes_by_hand():
 def test_roofline_window_sums_pictures():
     t = tokens_2x2()
     one = roofline.picture_bytes(t, 2)
-    assert roofline.window_bytes({0: 3, 1: 2}, [t, t], [2, 2]) == 5 * one
+    ref = reference.Reference(frames=None, pcts=[2, 2], tokens=[t, t])
+    assert roofline.window_bytes({(0, 0): 3, (0, 1): 2}, [ref]) == 5 * one
+    # a second channel's pictures are held against its own tokens
+    other = reference.Reference(frames=None, pcts=[1], tokens=[t])
+    assert roofline.window_bytes({(0, 0): 3, (1, 0): 2}, [ref, other]) == (
+        3 * one + 2 * roofline.picture_bytes(t, 1))
 
 
 def test_roofline_reader():
@@ -148,6 +153,24 @@ def test_roofline_reader():
         0.05)
     w.peak_bytes_per_s = 0     # a card with no rate in the table
     assert spec.reader("device_roofline_pct.live")(w) is None
+
+
+@pytest.mark.parametrize("name", ("kernel_us_per_frame",
+                                  "frames_per_s.tput"))
+def test_reader_finds_nothing_to_read(name):
+    """Without a trace, a kernel or a frame the reader returns nothing,
+    and the run leaves the metric out."""
+    assert spec.reader(name)(Window()) is None
+
+
+def test_kernel_time_per_traced_frame():
+    """The kernels' summed time over the traced part's frames, not over
+    the whole window's."""
+    w = Window(frames=400, trace_frames=128,
+               trace=trace.Trace(kernel_s=2.56e-3, busy_s=5e-3))
+    assert spec.reader("kernel_us_per_frame")(w) == pytest.approx(20.0)
+    w.trace.kernel_s = 0.0
+    assert spec.reader("kernel_us_per_frame")(w) is None
 
 
 def test_union_counts_each_cell_once():
@@ -184,8 +207,8 @@ def test_traced_part_and_pause(loop):
     # a stream of FRAMES empty pictures, for the open loop to cut
     data = (generate.GROUP_START + b"\x00\x00\x01\x00\x11" * FRAMES
             + generate.SEQUENCE_END)
-    d = Runner(config, traffic, data, 0, "cpu", FakeDecoder,
-               lambda **kw: kw, lambda: None)
+    d = spec.loop(loop)([config], traffic, [data], 0, "cpu", FakeDecoder,
+                        lambda **kw: kw, lambda: None)
     prof = FakeProfiler()
     t = time.perf_counter()
     w = d.run(0.6, prof, trace_s=0.2)

@@ -159,12 +159,12 @@ def test_added_files_are_found(tmp_path, bench):
                              "traffic": "offline_chunk4", "chips": 1,
                              "why": "x"})
     for m in new["end_to_end"]:
-        if m["name"] == "frames_per_s":
+        if m["name"] == "kernel_us_per_frame":
             m["workloads"].append("sd576_chunk4")
     new["per_layer"].append({"name": "output_ms_per_frame.tput",
                              "unit": "ms/frame", "better": "lower",
                              "source": "program_counter", "layer": "delivery",
-                             "moves": "frames_per_s",
+                             "moves": "kernel_us_per_frame",
                              "workloads": ["sd576_chunk4"]})
     (root / "BENCHMARK.json").write_text(json.dumps(new))
 
@@ -172,7 +172,8 @@ def test_added_files_are_found(tmp_path, bench):
     assert cell.config["width"] == 720
     assert cell.traffic["decoder"] == {"gop_chunk": 4}
     assert [m["name"] for m in cell.per_layer] == ["output_ms_per_frame.tput"]
-    assert {m["name"] for m in cell.end_to_end} == {"frames_per_s", "setup_s"}
+    assert {m["name"] for m in cell.end_to_end} == {"kernel_us_per_frame",
+                                                    "setup_s"}
     read = spec.reader("output_ms_per_frame.tput", root=str(root))
     from mp2v_bench.drive import Window
     assert read(Window(frames=4, stats={"output_s": 0.02})) == 5.0
