@@ -236,6 +236,19 @@ class StreamBatchRecon(_Sharded):
         return (_pick(is_ip, refs0, refs1), _pick(is_ip, refs1, planes),
                 planes)
 
+    def copy_bytes(self, is_ip) -> int:
+        """The bytes that :meth:`dispatch` of a step with these flags
+        writes on the device beyond the kernels' own planes, reckoned from
+        the plane shapes and the flags without reading the device: the
+        stacked output planes, and both reference lists restacked where
+        ``_pick`` mixes I/P with B streams."""
+        g = self.geom
+        stack = self.n_streams * sum(
+            h * w for h, w in (g.luma_padded, g.chroma_padded,
+                               g.chroma_padded))
+        mixed = any(is_ip) and not all(is_ip)
+        return stack * (3 if mixed else 1)
+
     def __call__(self, tokens_list, refs0=None, refs1=None):
         """One picture of every stream, B-coded: forward prediction from
         ``refs0``, backward from ``refs1``; the reference lists are not

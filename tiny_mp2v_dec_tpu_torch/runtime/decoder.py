@@ -314,10 +314,12 @@ class MP2VDecoder:
         self.user_data: List[bytes] = []  # reference: decoder.cpp:194-200
         self._chunk: List[tuple] = []  # (tokens, geom, ph) awaiting batch
         self._frames: List[LazyFrame] = []
-        # decode() calls and chunks handed on since reset(): the units of
-        # the decode and chunk spans (a picture's is stats["pictures"])
+        # decode() calls, chunks handed on and decode_batch() calls since
+        # reset(): the units of the decode, chunk and batch_tokenize spans
+        # (a picture's is stats["pictures"])
         self._n_decodes = 0
         self._n_chunks = 0
+        self._n_batches = 0
         # Summed since reset(), host seconds on time.time_ns() unless
         # said; each timed interval is also the span named beside it
         # (runtime/spans.py) while self.spans records:
@@ -338,10 +340,20 @@ class MP2VDecoder:
         #   upload and recon);
         # - output_s: host output's fetch of delivered frames
         #   (perf_counter; inside the deliver spans).
+        # decode_batch alone (0 on the other paths):
+        # - batch_tokenize_s: its tokenize-every-stream phase, the device
+        #   idle (span batch_tokenize, caller);
+        # - batch_steps, noop_pictures: its device steps, and the no-op
+        #   pictures that padded them;
+        # - batch_copy_bytes: the bytes its steps' output stack and
+        #   reference picks write on the device, reckoned on the host
+        #   (StreamBatchRecon.copy_bytes).
         self.stats = {"pictures": 0, "tokenize_s": 0.0, "fill_s": 0.0,
                       "device_s": 0.0, "output_s": 0.0, "bad_slices": 0,
                       "slot_wait_s": 0.0, "fill_wait_s": 0.0,
-                      "chunk_wait_s": 0.0}
+                      "chunk_wait_s": 0.0, "batch_tokenize_s": 0.0,
+                      "batch_steps": 0, "noop_pictures": 0,
+                      "batch_copy_bytes": 0}
 
     # ------------------------------------------------------------------
     def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
@@ -437,7 +449,19 @@ class MP2VDecoder:
         decoder whose fill and dispatch threads never start, with
         ``num_threads`` (by default the CPUs shared out among the streams
         tokenized at once).  Returns each stream's frames in display
-        order (decode order with ``reordering=False``)."""
+        order (decode order with ``reordering=False``).
+
+        Counted in :attr:`stats` (and recorded as spans while
+        :attr:`spans` records): the tokenize phase's wall time, in which
+        the device idles, as ``batch_tokenize_s`` (span
+        ``batch_tokenize``, unit the call's number since ``reset()``), the
+        shells' tokenizer calls as ``tokenize_s``; then each step's
+        ``GopRecon.prepare`` of a picture of every stream as ``fill_s``
+        (span ``prepare``, unit the step), its upload and kernel enqueue
+        as ``device_s`` (span ``dispatch``); ``batch_steps`` and
+        ``noop_pictures``, the steps and the no-op pictures in them; and
+        ``batch_copy_bytes``, what the steps' output stack and reference
+        picks write on the device."""
         if not streams:
             raise ValueError("decode_batch: no streams")
         cpus = os.cpu_count() or 1
@@ -452,9 +476,15 @@ class MP2VDecoder:
             shell.spans = self.spans
             return shell.tokenize_stream(data), shell.stats
 
+        t0 = time.time_ns()
+        span = self.spans.begin(t0)
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="mp2v-tokenize") as ex:
             done = list(ex.map(tokenize_one, streams))
+        t1 = time.time_ns()
+        self.stats["batch_tokenize_s"] += (t1 - t0) / 1e9
+        self.spans.end(span, "batch_tokenize", self._n_batches, t1)
+        self._n_batches += 1
         seqs = [q for q, _ in done]
         for _, st in done:
             for k in ("pictures", "tokenize_s", "bad_slices"):
@@ -507,15 +537,26 @@ class MP2VDecoder:
                     phs.append(None)
             is_b = [ph is None or ph.picture_coding_type == H.PCT_B
                     for ph in phs]
+            is_ip = [not b for b in is_b]
             t0 = time.time_ns()
             span = self.spans.begin(t0)
-            refs0, refs1, planes = sb.step(toks, is_b, [not b for b in is_b],
-                                           refs0, refs1)
+            staged = sb.transport.prepare(
+                toks, [H.PCT_B if b else H.PCT_P for b in is_b], step)
+            t1 = time.time_ns()
+            self.stats["fill_s"] += (t1 - t0) / 1e9
+            self.stats["slot_wait_s"] += sb.transport.slot_wait_ns / 1e9
+            self.spans.end(span, "prepare", step, t1)
+            span = self.spans.begin(t1)
+            refs0, refs1, planes = sb.dispatch(staged, is_b, is_ip, refs0,
+                                               refs1)
             shared = (tuple(host_copy(p) for p in planes)
                       if self.config.output_host else None)
-            t1 = time.time_ns()
-            self.stats["device_s"] += (t1 - t0) / 1e9
-            self.spans.end(span, "dispatch", step, t1)
+            t2 = time.time_ns()
+            self.stats["device_s"] += (t2 - t1) / 1e9
+            self.spans.end(span, "dispatch", step, t2)
+            self.stats["batch_steps"] += 1
+            self.stats["noop_pictures"] += sum(ph is None for ph in phs)
+            self.stats["batch_copy_bytes"] += sb.copy_bytes(is_ip)
             if self.config.output_host:
                 # earlier steps' frames, whose copies ran while this step
                 # was queued

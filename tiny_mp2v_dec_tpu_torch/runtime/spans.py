@@ -14,7 +14,8 @@ A record is ``(name, thread, unit, start_ns, end_ns, cpu_ns)``:
   ``pool_wait`` (the frame waited for), the decode's for ``decode``, and
   the chunk's for the others (on the latency path a chunk
   is one picture, and its number the picture's; in ``decode_batch`` the
-  step's), so that one chunk's spans join across the threads;
+  step's, and for ``batch_tokenize`` the call's), so that one chunk's
+  spans join across the threads;
 * ``start_ns``, ``end_ns``: ``time.time_ns()``, the clock of
   ``torch.profiler``'s events;
 * ``cpu_ns``: the thread's CPU time in the span (``time.thread_time_ns``):
@@ -23,22 +24,32 @@ A record is ``(name, thread, unit, start_ns, end_ns, cpu_ns)``:
 
 Spans nest on their thread; a span's parent is the one that encloses it:
 
-=============  =====================================  =====================
-span           thread, inside                         counter (``stats``)
-=============  =====================================  =====================
-``decode``     caller: ``MP2VDecoder.decode``         --
-``tokenize``   caller (``decode``)                    ``tokenize_s``
-``chunk_wait`` caller: the oldest chunk in flight     ``chunk_wait_s``
-``prepare``    fill; caller at ``gop_chunk=0``        ``fill_s``
-``slot_wait``  ``prepare``: a free slot, its upload   ``slot_wait_s``
-``fill_wait``  dispatch: the chunk's ``prepare``      ``fill_wait_s``
-``dispatch``   dispatch; caller at ``gop_chunk=0``    ``device_s``
-``upload``     ``dispatch``                           --
-``recon``      ``dispatch``: glue and kernel enqueue  --
-``route``      after ``dispatch``; caller in flush    --
-``pool_wait``  ``route``: the oldest frame's event    --
-``deliver``    ``route``: host fetch and renderer     (``output_s``: fetch)
-=============  =====================================  =====================
+==================  =====================================  ======================
+span                thread, inside                         counter (``stats``)
+==================  =====================================  ======================
+``decode``          caller: ``MP2VDecoder.decode``         --
+``batch_tokenize``  caller: ``decode_batch``'s tokenize    ``batch_tokenize_s``
+                    of every stream
+``tokenize``        caller (``decode``);                   ``tokenize_s``
+                    ``mp2v-tokenize_*`` in ``decode_batch``
+``chunk_wait``      caller: the oldest chunk in flight     ``chunk_wait_s``
+``prepare``         fill; caller at ``gop_chunk=0`` and    ``fill_s``
+                    in ``decode_batch``
+``slot_wait``       ``prepare``: a free slot, its upload   ``slot_wait_s``
+``fill_wait``       dispatch: the chunk's ``prepare``      ``fill_wait_s``
+``dispatch``        dispatch; caller at ``gop_chunk=0``    ``device_s``
+                    and in ``decode_batch``
+``upload``          ``dispatch``                           --
+``recon``           ``dispatch``: glue and kernel enqueue  --
+``route``           after ``dispatch``; caller in flush    --
+``pool_wait``       ``route``: the oldest frame's event    --
+``deliver``         ``route``: host fetch and renderer     (``output_s``: fetch)
+==================  =====================================  ======================
+
+``decode_batch`` also counts, with no span, its device steps
+(``batch_steps``), the no-op pictures that pad them (``noop_pictures``)
+and the bytes its output stack and reference picks write on the device
+(``batch_copy_bytes``).
 
 A span and its counter come from the same two clock readings.  Off, a
 span costs one test of the log in :meth:`Spans.begin` and one of its
