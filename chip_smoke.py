@@ -9,8 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: the CUDA kernels (``tiny_mp2v_dec_tpu_torch/csrc/*.cu``, nvcc for
    sm_90a) and the native tokenizer, from this checkout into ``build/``;
 3. kernels: K1 (IDCT, at the block counts of both fixtures' chunks, warm
-   and cold), K2 (luma MC+recon), K3 (U+V MC+recon, at the
-   chroma tile of every format: 8x8, 16x8, 16x16), K4 (their field form:
+   and cold), the chunk transport (:func:`check_transport`: pairs to rows,
+   K1's transform and the residual grid in three launches, on both
+   fixtures' 16-picture chunks, a batch step of 8 and a chunk of 1, timed
+   beside the PyTorch transport and K1 launch it replaced), K2 (luma
+   MC+recon), K3 (U+V MC+recon, at the chroma tile of every format: 8x8,
+   16x8, 16x16), K4 (their field form:
    luma 16x16, chroma at every tile), K5 and K6 (the same function through
    aligned window words loaded once, ``MP2V_MC_IMPL=roll``: luma, and U+V
    at every chroma tile), K7 and K8 (packed prediction, four pixels per
@@ -39,13 +43,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    committed fixture under one ``MP2V_MC_IMPL`` (set before the path's
    decoder is built), each with the launch counts reset just before and
    read just after its decode.  The 16-picture 1080p 4:2:0 IBBP stream
-   (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (K1, K2, K3 in
-   their blocks form, and no launch of their vector form),
-   ``roll`` (K1, K5, K6) and ``swar`` (K1, K7); the interlaced 1080-line
-   4:2:2 stream with field motion and field DCT
-   (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (K1, K4's
-   blocks form) and
-   ``swar`` (K1, K8).  Each path must launch its kernels exactly as often
+   (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (the chunk
+   transport, K2, K3 in their blocks form, and no launch of their vector
+   form), ``roll`` (the transport, K5, K6) and ``swar`` (the transport,
+   K7); the interlaced 1080-line 4:2:2 stream with field motion and field
+   DCT (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (the
+   transport, K4's blocks form) and ``swar`` (the transport, K8).  Each path must launch its kernels exactly as often
    as :data:`PATHS` says and no MC kernel of another implementation, and
    each YUV sha256 must equal the one recorded from the JAX package (the
    ``.json`` beside each stream); then warm decode frames/s of each.
@@ -55,7 +58,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    uploads and launches), once with ``pictures_pool_size=0`` and frames
    left on the device and once with a pool of one and host output (each
    chunk's frames copied to pinned host memory as soon as its kernels are
-   queued), each to the same hash with K1 launched once a chunk; their
+   queued), each to the same hash with the transport once a chunk; their
    warm frames/s and the overlap figure ``(tokenize_s + fill_s +
    device_s) / wall`` (above 1: the stages ran at the same time), beside
    the host's CPU count.  Last, the main path over several chunks
@@ -88,7 +91,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    three geometry groups, two 1080p 4:2:0 streams of unequal length, the
    shorter padded with no-op pictures, the interlaced stream on K4) under
    ``mxu``, the two 1080p 4:2:0 streams also under ``roll`` and ``swar``
-   (:data:`BATCH_CASES`: K1 once a step); (b) serving at width: 16 copies
+   (:data:`BATCH_CASES`: the transport once a step); (b) serving at width: 16 copies
    of the 16-picture 1080p 4:2:0 stream in one batch
    (:data:`SERVE_LAUNCHES`), beside two independent decoders on two
    threads (the bench's chip-capacity run) on the same stream; (c) first
@@ -99,7 +102,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to its plain version on the band and to the same rows of the
    whole-picture launch), then ``mesh="rows"`` in those 4 bands on the
    1080p 4:2:0 and the interlaced streams under ``mxu`` and ``swar``
-   (:data:`ROWS`: K1 once a picture); each with warm frames/s.  Gate 3
+   (:data:`ROWS`: the transport once a picture); each with warm frames/s.  Gate 3
    (the serving step) is in phase 5's ``perf_gate`` record;
 8. the multi-host paths on the card, each phase timed, each fixture four
    times over as plain bytes (``data * 4``, every copy with its sequence
@@ -152,26 +155,27 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
 DATA = os.path.join(REPO, "tests", "data")
 # end-to-end paths: (fixture, MP2V_MC_IMPL) -> the launches of its decode
-# (one chunk of 16 pictures: K1 once, the two-plane MC kernels — under mxu
-# the blocks form of K2/K3 or K4 — and K7's picture form once per picture,
-# K8 once per component per picture)
+# (one chunk of 16 pictures: the chunk transport once, its three launches
+# counted; the two-plane MC kernels — under mxu the blocks form of K2/K3 or
+# K4 — and K7's picture form once per picture, K8 once per component per
+# picture; no launch of K1 alone)
 PATHS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 1, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
+        "transport": 3, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 1, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
+        "transport": 3, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
     ("bench_1080p_420_16", "roll"): {
-        "idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16},
-    ("bench_1080p_420_16", "swar"): {"idct8x8": 1, "mc_swar_yuv": 16},
-    ("interlaced_1080_422_16", "swar"): {"idct8x8": 1, "mc_swar_field": 48},
+        "transport": 3, "mc_roll_luma": 16, "mc_roll_uv": 16},
+    ("bench_1080p_420_16", "swar"): {"transport": 3, "mc_swar_yuv": 16},
+    ("interlaced_1080_422_16", "swar"): {"transport": 3, "mc_swar_field": 48},
 }
-# pipelined paths, under mxu at gop_chunk=4: the same launches but K1's,
-# once for each of the four chunks
+# pipelined paths, under mxu at gop_chunk=4: the same launches but the
+# transport's, once for each of the four chunks
 PIPELINED = {
     "bench_1080p_420_16": {
-        "idct8x8": 4, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
+        "transport": 12, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
     "interlaced_1080_422_16": {
-        "idct8x8": 4, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
+        "transport": 12, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
 }
 # (pictures_pool_size, output_host) of each pipelined path's two decodes
 DELIVERY = ((0, False), (1, True))
@@ -191,39 +195,41 @@ BENCH_LAUNCHES = {k: 4 * n for k, n in PATHS["bench_1080p_420_16",
                                               "mxu"].items()}
 # phase 7 (a): decode_batch of these streams (three geometry groups; two
 # 1080p 4:2:0 streams of unequal length; the interlaced stream on K4);
-# MP2V_MC_IMPL -> (streams, launches on one card: K1 once a step, the
-# longest stream of a group setting its steps, the MC kernels once a stream
-# a step, no-op padding included)
+# MP2V_MC_IMPL -> (streams, launches on one card: the transport once a step
+# (three launches), the longest stream of a group setting its steps, the MC
+# kernels once a stream a step, no-op padding included)
 BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
          NATURAL)
 BATCH_CASES = {
-    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_blocks_luma": 48,
+    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_luma": 48,
                     "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
                     "mc_field_blocks_uv": 16}),
-    "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
+    "roll": (BATCH[:2], {"transport": 48, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
-    "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
+    "swar": (BATCH[:2], {"transport": 48, "mc_swar_yuv": 32}),
 }
 # phase 7 (b): serving at width, this many copies of the 16-picture 1080p
 # 4:2:0 stream in one batch (BASELINE.json's "16x 1080p"), under mxu
 SERVE = "bench_1080p_420_16"
 SERVE_COPIES = 16
-SERVE_LAUNCHES = {"idct8x8": 16, "mc_recon_blocks_luma": 16 * SERVE_COPIES,
+SERVE_LAUNCHES = {"transport": 48, "mc_recon_blocks_luma": 16 * SERVE_COPIES,
                   "mc_recon_blocks_uv": 16 * SERVE_COPIES}
 # phase 7 (c): mesh="rows" in this many bands (68 MB rows: 17 a band);
-# (fixture, MP2V_MC_IMPL) -> launches: K1 once a picture, the MC kernels
+# (fixture, MP2V_MC_IMPL) -> launches: the transport once a picture (three
+# launches), the MC kernels
 # once a band a picture (the interlaced stream's I picture, which has no
 # field MB, on the frame kernels)
 ROW_BANDS = 4
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_blocks_luma": 64, "mc_recon_blocks_uv": 64},
-    ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
+        "transport": 48, "mc_recon_blocks_luma": 64,
+        "mc_recon_blocks_uv": 64},
+    ("bench_1080p_420_16", "swar"): {"transport": 48, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
+        "transport": 48, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
         "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
     ("interlaced_1080_422_16", "swar"): {
-        "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
+        "transport": 48, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }
 # phase 8: the multi-host paths, each fixture REPEAT times over as plain
 # bytes (four closed chunks), under mxu at gop_chunk=16: (fixture, worker
@@ -248,7 +254,7 @@ VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
 # every MC kernel's counter: the paths', K7's one-component form and the
 # vector form of K2/K3/K4, which no path launches
 MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
-              | {"mc_swar", *VECTOR_FORM}) - {"idct8x8"}
+              | {"mc_swar", *VECTOR_FORM}) - {"transport", "idct8x8"}
 TIMED_RUNS = 20
 # the card's peaks for the bound (H100 SXM data sheet): HBM bytes and
 # non-tensor arithmetic per ms; the data sheet lists no rate for integer
@@ -373,9 +379,9 @@ def check_idct(torch, np, rng):
     fixture's first, its record the main one), each including all-zero and
     saturating rows: equal to the plain version, device time warm (the same
     tensors again, served from L2 where they fit) and cold
-    (:func:`idct_cold_ms`), and the bound.  The path's K1 reads
-    coefficients just written by ``index_put_``, so it sees the warm
-    case."""
+    (:func:`idct_cold_ms`), and the bound.  The decoder's paths run K1's
+    transform inside the chunk transport (:func:`check_transport`), not
+    this kernel."""
     from tiny_mp2v_dec_tpu_torch.ops.idct import idct_blocks, idct_blocks_ref
     recs = {}
     for n in IDCT_BLOCKS:
@@ -408,6 +414,91 @@ def check_idct(torch, np, rng):
     main["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
     main["blocks"] = {str(n): {k: r[k] for k in ("ms", "cold_ms", "plain_ms",
                                                   "bound_ms")}
+                      for n, r in recs.items()}
+    return main
+
+
+# (label, fixture, chunk, the fixture's pictures, batch step form) that
+# check_transport decodes, the first the main record: the chunk
+# pipeline's 16-picture chunks of both fixtures, a decode_batch step of 8
+# streams (one picture each, picture types as the step flags give them:
+# B or not) and the latency path's chunk of one picture
+TRANSPORT_CASES = (
+    ("chunk of 16", "bench_1080p_420_16", 16, range(16), False),
+    ("chunk of 16", "interlaced_1080_422_16", 16, range(16), False),
+    ("batch step of 8", "bench_1080p_420_16", 8, range(0, 16, 2), True),
+    ("chunk of 1", "bench_1080p_420_16", 1, range(1), False),
+)
+
+
+def check_transport(torch) -> dict:
+    """The chunk transport (``csrc/transport.cu``, three launches) on each
+    of :data:`TRANSPORT_CASES` as the decoder prepares and uploads it:
+    ``(dense, meta, flags)`` equal to the plain version's, with the device
+    ms of the kernel (``ms``), of what it replaced on the decoder's paths
+    (``replaced_ms``: the plain version with K1 as its row transform, 38
+    PyTorch kernels and one K1 launch), of the plain version, and the
+    bound: the grid written and the blob's sections read (pairs, counts,
+    block positions, rows a picture) over the memory rate, beside K1's
+    operations on the coded rows over the arithmetic rate."""
+    from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder
+    from tiny_mp2v_dec_tpu_torch.ops import idct
+    from tiny_mp2v_dec_tpu_torch.ops.recon import GopRecon
+    recs = {}
+    for label, name, chunk, pictures, batch in TRANSPORT_CASES:
+        data, _ = _fixtures().load(name)
+        toks = MP2VDecoder(DecoderConfig(device="cpu")).tokenize_stream(data)
+        toks = [toks[i] for i in pictures]
+        field = any(bool(t.field_pred.any()) for t, _, _ in toks)
+        pcts = [ph.picture_coding_type for _, _, ph in toks]
+        if batch:
+            # StreamBatchRecon.step's picture types: B, or I/P as 2
+            pcts = [3 if p == 3 else 2 for p in pcts]
+        rec = GopRecon(toks[0][1], chunk, "cuda", field_support=field)
+        staged = rec.prepare([t for t, _, _ in toks], pcts)
+        (cap_pairs, cap_k), _, _ = staged
+        up = rec._upload_released(staged)
+        kw = dict(cap_pairs=cap_pairs, cap_k=cap_k)
+
+        def kern():
+            return rec._decode_blob(up, **kw)
+
+        def plain():
+            return rec._decode_blob_ref(up, **kw)
+
+        def replaced():
+            return rec._decode_blob_ref(up, **kw, transform=idct.idct_blocks)
+
+        got, want, old = kern(), plain(), replaced()
+        torch.cuda.synchronize()
+        for part, g, w, o in zip(("dense", "meta", "flags"), got, want, old):
+            if not (torch.equal(g, w) and torch.equal(o, w)):
+                fail(f"transport {name} {label}: {part} differs from the "
+                     f"plain version's (max abs err "
+                     f"{max_abs_err(torch, g, w)})")
+        coded = sum(t.n_coded_blocks for t, _, _ in toks)
+        read = rec._layout(cap_pairs, cap_k)[5]
+        b_ms = (read + got[0].numel() * 2) / HBM_BYTES_PER_MS
+        o_ms = coded * 64 * OPS_PER_OUT["idct8x8"] / OPS_PER_MS
+        r = {"max_abs_err": 0, "ms": cuda_ms(torch, kern),
+             "replaced_ms": cuda_ms(torch, replaced),
+             "plain_ms": cuda_ms(torch, plain),
+             "bound_ms": max(b_ms, o_ms),
+             "bound_by": "bytes" if b_ms >= o_ms else "operations",
+             "library_ms": None, "chunk": chunk, "pictures": len(toks),
+             "rows": cap_k, "coded_rows": coded,
+             "grid_bytes": got[0].numel() * 2, "blob_bytes_read": read}
+        print(f"transport {name} {label}: {len(toks)} pictures, {coded} "
+              f"coded rows of {cap_k}, grid {r['grid_bytes'] / 1e6:.1f} MB; "
+              f"equal to plain; kernel {r['ms']:.4f} ms, replaced (PyTorch "
+              f"transport + K1) {r['replaced_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; operations {o_ms:.4f} ms)")
+        recs[f"{name} {label}"] = r
+    main = dict(next(iter(recs.values())))
+    main["chunks"] = {n: {k: r[k] for k in ("chunk", "pictures", "ms",
+                                            "replaced_ms", "plain_ms",
+                                            "bound_ms")}
                       for n, r in recs.items()}
     return main
 
@@ -961,8 +1052,8 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
     ``MP2V_MC_IMPL=impl`` through the decoder's entry point with the
     launch counts reset just before and read just after; check the hash
     (of each repeat), that every kernel of the path launched as often as
-    ``expected`` says and that no MC kernel of another implementation
-    did; then time ``runs`` warm decodes (by default
+    ``expected`` says and that neither K1 alone nor an MC kernel of another
+    implementation did; then time ``runs`` warm decodes (by default
     :data:`DECODE_RUNS`).  Returns (launches, frames/s, overlap: the
     median over the warm decodes of ``(tokenize_s + fill_s + device_s) /
     wall``)."""
@@ -998,10 +1089,10 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
             fail(f"{label}: kernel {k} launched {launches.get(k, 0)} "
                  f"times, expected {n}")
     stray = {k: n for k, n in launches.items()
-             if k in MC_KERNELS and k not in expected}
+             if k in MC_KERNELS | {"idct8x8"} and k not in expected}
     if stray:
-        fail(f"{label}: MC kernels of another implementation launched: "
-             f"{stray}")
+        fail(f"{label}: K1 alone or MC kernels of another implementation "
+             f"launched: {stray}")
     runs = DECODE_RUNS[impl] if runs is None else runs
     walls, overlaps = [], []
     for _ in range(runs):
@@ -1025,12 +1116,13 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
 
 def natural_launches(impl: str, gop_chunk: int) -> dict:
     """The launches of a decode of the natural stream's 16 frame-predicted
-    pictures: K1 once a chunk (a picture is a chunk at ``gop_chunk=0``),
+    pictures: the transport once a chunk (a picture is a chunk at
+    ``gop_chunk=0``; three launches),
     the MC kernels of ``impl`` once a picture."""
     mc = {"mxu": ("mc_recon_blocks_luma", "mc_recon_blocks_uv"),
           "roll": ("mc_roll_luma", "mc_roll_uv"),
           "swar": ("mc_swar_yuv",)}[impl]
-    return {"idct8x8": 16 // gop_chunk if gop_chunk else 16,
+    return {"transport": 3 * (16 // gop_chunk if gop_chunk else 16),
             **{k: 16 for k in mc}}
 
 
@@ -1674,6 +1766,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     rec = {
         "idct8x8": check_idct(torch, np, rng),
+        "transport": check_transport(torch),
         "mc_recon_luma": check_mc(torch, np, rng, "K2 mc_recon_luma",
                                   1088, 1920, 16, 16, uv=False),
         "mc_recon_uv": check_tiles(torch, np, rng, "K3 mc_recon_uv", CHROMA,
@@ -1758,6 +1851,7 @@ def main() -> int:
     mcp = "tiny_mp2v_dec_tpu/ops/mc_pallas.py"
     sources = {
         "idct8x8": ("idct.cu", "tiny_mp2v_dec_tpu/ops/idct.py:49"),
+        "transport": ("transport.cu", "tiny_mp2v_dec_tpu/ops/recon.py:868"),
         "mc_recon_luma": ("mc_recon.cu", f"{mcp}:448"),
         "mc_recon_uv": ("mc_recon.cu", f"{mcp}:492"),
         "mc_field_luma": ("mc_recon.cu", f"{mcp}:353"),

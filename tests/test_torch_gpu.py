@@ -5,7 +5,11 @@ K4 and K8 on those and the field kinds: field units at the bottom and
 right edges and at C_1 = -1, every ``sx_r & 3`` at every phase, every MB
 field-predicted; K5, K6 and K7's picture form on every frame kind; K3, K4,
 K6, K7 and K8 at the chroma tile of every format; K1 from one block to the
-interlaced fixture's 196,608, over all of int16;
+interlaced fixture's 196,608, over all of int16; the chunk transport, which
+runs K1's transform inside it on the decoder's paths, on both 1080-line
+fixtures' chunks (whole, short, chunks of 1 and 8, both block-position
+forms) and on synthetic 1080- and 576-line chunks of every chroma format
+(pictures with no coded block, full rows at int16's ends);
 K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
 at every phase, on the tightest plane and at 1088x1904; the blocks form
 of K2/K3/K4, which the decoder's mxu path launches, on 1080-line pictures
@@ -36,6 +40,10 @@ from tiny_mp2v_dec_tpu_torch import (  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused  # noqa: E402
 from tiny_mp2v_dec_tpu_torch.ops.idct import (  # noqa: E402
     idct_blocks, idct_blocks_ref)
+from tiny_mp2v_dec_tpu_torch.ops.recon import (  # noqa: E402
+    TRANSPORT_LAUNCHES, GopRecon)
+from tiny_mp2v_dec_tpu_torch.tokenizer.types import (  # noqa: E402
+    PictureGeometry)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -82,6 +90,101 @@ def test_idct_kernel_refuses_misaligned_input():
     with pytest.raises(ValueError, match="16-byte"):
         idct_blocks(shifted)
     assert dict(_build.LAUNCHES) == before
+
+
+def _transport_check(recon, tokens, pcts):
+    """Prepare and upload a chunk, then decode its blob through the chunk
+    transport kernel and through the plain version: (dense, meta, flags)
+    equal, meta and flags views of the uploaded blob, the kernel's three
+    launches counted and no launch of K1 alone."""
+    staged = recon.prepare(tokens, pcts)
+    (cap_pairs, cap_k), _, _ = staged
+    up = recon._upload_released(staged)
+    before = dict(_build.LAUNCHES)
+    got = recon._decode_blob(up, cap_pairs=cap_pairs, cap_k=cap_k)
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
+              for k in ("transport", "idct8x8")}
+    assert counts == {"transport": TRANSPORT_LAUNCHES, "idct8x8": 0}
+    want = recon._decode_blob_ref(up, cap_pairs=cap_pairs, cap_k=cap_k)
+    for name, g, w in zip(("dense", "meta", "flags"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    blob = up.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == blob for t in got[1:])
+
+
+# (fixture, chunk, first picture, pictures, uint16 block positions): both
+# 1080-line fixtures' 16-picture chunks in both block-position forms, a
+# chunk shorter than its size, chunks of 8 and of 1
+TRANSPORT_FIXTURES = [
+    ("bench_1080p_420_16", 16, 0, 16, True),
+    ("bench_1080p_420_16", 16, 0, 16, False),
+    ("interlaced_1080_422_16", 16, 0, 16, True),
+    ("interlaced_1080_422_16", 16, 0, 16, False),
+    ("bench_1080p_420_16", 16, 0, 12, True),
+    ("interlaced_1080_422_16", 16, 4, 9, False),
+    ("bench_1080p_420_16", 8, 8, 8, True),
+    ("interlaced_1080_422_16", 8, 3, 5, True),
+    ("bench_1080p_420_16", 1, 0, 1, True),
+    ("interlaced_1080_422_16", 1, 5, 1, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,chunk,first,pictures,scat_u16",
+                         TRANSPORT_FIXTURES)
+def test_transport_kernel_matches_plain(name, chunk, first, pictures,
+                                        scat_u16):
+    """The chunk transport kernel against its plain version on the
+    fixtures' own blobs (:func:`_transport_check`); a chunk with a
+    field-predicted MB takes the field form's 9 metadata columns."""
+    dev = _require_cuda()
+    data, _ = fixtures.load(name)
+    toks = MP2VDecoder(DecoderConfig(device="cpu")).tokenize_stream(data)
+    sel = toks[first:first + pictures]
+    field = any(bool(t.field_pred.any()) for t, _, _ in sel)
+    recon = GopRecon(sel[0][1], chunk, dev, field_support=field)
+    recon._scat_u16 = scat_u16
+    _transport_check(recon, [t for t, _, _ in sel],
+                     [ph.picture_coding_type for _, _, ph in sel])
+
+
+# (chroma format, lines, chunk, pictures, uint16 block positions, pictures
+# with no coded block) of synthetic chunks of 1920-wide pictures, or
+# 720-wide at 576 lines; the uint16 form only where a picture's blocks fit
+# it (at 1088 lines 4:4:4 has 97,920 and takes the int32 form)
+TRANSPORT_SYNTHETIC = [
+    (1, 1088, 16, 16, True, (5,)),
+    (1, 1088, 1, 1, False, ()),
+    (2, 1088, 8, 8, False, (0,)),
+    (2, 1088, 16, 7, True, (6,)),
+    (3, 1088, 16, 16, False, (15,)),
+    (3, 1088, 1, 1, False, (0,)),
+    (3, 576, 8, 3, True, ()),
+    (3, 576, 16, 16, True, (0, 9)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf,lines,chunk,pictures,scat_u16,empty",
+                         TRANSPORT_SYNTHETIC)
+def test_transport_kernel_matches_plain_synthetic(cf, lines, chunk, pictures,
+                                                  scat_u16, empty):
+    """The chunk transport kernel against its plain version on synthetic
+    chunks (``transport_cases.synthetic_chunk``): every chroma format,
+    coded rows in a random claim order and of every density, two full rows
+    a picture at int16's ends, pictures with no coded block, short chunks
+    (:func:`_transport_check`)."""
+    from transport_cases import synthetic_chunk
+    dev = _require_cuda()
+    geom = PictureGeometry(1920 if lines == 1088 else 720, lines, cf)
+    assert not scat_u16 or geom.n_mb * geom.blocks_per_mb < 0xFFFF
+    recon = GopRecon(geom, chunk, dev)
+    recon._scat_u16 = scat_u16
+    toks, pcts = synthetic_chunk(np.random.default_rng(40 + cf + chunk),
+                                 geom, pictures, empty)
+    _transport_check(recon, toks, pcts)
 
 
 # input kinds of the frame forms (:func:`_mc_case`)
@@ -401,12 +504,13 @@ VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,kernels", [
-    ("bench_1080p_420_16", ("idct8x8",) + MXU_FRAME),
-    ("interlaced_1080_422_16", ("idct8x8",) + MXU_FIELD),
+    ("bench_1080p_420_16", ("transport",) + MXU_FRAME),
+    ("interlaced_1080_422_16", ("transport",) + MXU_FIELD),
 ])
 def test_decode_fixture_through_kernels(name, kernels):
-    """Each 1080-line fixture decodes to its JAX hash through K1 once and
-    the blocks form of its MC kernels twice a picture (luma, U+V), and no
+    """Each 1080-line fixture decodes to its JAX hash through the chunk
+    transport once (its three launches; no launch of K1 alone) and the
+    blocks form of its MC kernels twice a picture (luma, U+V), and no
     vector-form launch."""
     _require_cuda()
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
@@ -422,9 +526,10 @@ def test_decode_fixture_through_kernels(name, kernels):
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
-              for k in kernels + VECTOR_FORM}
-    assert counts == {"idct8x8": 1, **{k: 16 for k in kernels[1:]},
-                      **{k: 0 for k in VECTOR_FORM}}
+              for k in kernels + VECTOR_FORM + ("idct8x8",)}
+    assert counts == {"transport": TRANSPORT_LAUNCHES,
+                      **{k: 16 for k in kernels[1:]},
+                      **{k: 0 for k in VECTOR_FORM + ("idct8x8",)}}
 
 
 @pytest.mark.cuda
@@ -436,7 +541,8 @@ def test_decode_fixture_through_kernels(name, kernels):
 def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
     """``gop_chunk=4``: the fixture's four chunks through the fill and
     dispatch threads, from pinned staging slots, to the same JAX hash,
-    with K1 once a chunk and each MC kernel once a picture; with host
+    with the chunk transport once a chunk and each MC kernel once a
+    picture; with host
     output, each chunk's frames read from the pinned copy started on the
     dispatch thread."""
     _require_cuda()
@@ -453,8 +559,9 @@ def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
         h.update(f.tobytes())
     assert h.hexdigest() == want["yuv_sha256"]
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
-              for k in ("idct8x8",) + kernels}
-    assert counts == {"idct8x8": 4, **{k: 16 for k in kernels}}
+              for k in ("transport", "idct8x8") + kernels}
+    assert counts == {"transport": 4 * TRANSPORT_LAUNCHES, "idct8x8": 0,
+                      **{k: 16 for k in kernels}}
     recon, = dec._recons.values()
     slots = [s for shape in recon._stage.values() for s in shape if s]
     assert 0 < len(slots) <= 3 * len(recon._stage)
@@ -490,8 +597,9 @@ def test_decode_fixture_over_four_chunks(name, kernels):
             h.update(f.tobytes())
         assert h.hexdigest() == want["yuv_sha256"], f"copy {i}"
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
-              for k in ("idct8x8",) + kernels}
-    assert counts == {"idct8x8": 4, **{k: 64 for k in kernels}}
+              for k in ("transport", "idct8x8") + kernels}
+    assert counts == {"transport": 4 * TRANSPORT_LAUNCHES, "idct8x8": 0,
+                      **{k: 64 for k in kernels}}
     assert len(dec._spare_tokens) <= 32
 
 
@@ -507,9 +615,9 @@ FRAME_MC = {"mxu": MXU_FRAME,
 def test_decode_natural_content(monkeypatch, impl, gop_chunk):
     """Natural content (``natural_576_420_16``: 720x576 4:2:0 from
     ``tests/natural_m2v.py``'s motion search) through each MC
-    implementation at each chunk size, to the JAX package's hash: K1 once
-    a chunk (a picture at ``gop_chunk=0``), the implementation's MC kernels
-    once a picture and no other MC kernel."""
+    implementation at each chunk size, to the JAX package's hash: the
+    chunk transport once a chunk (a picture at ``gop_chunk=0``), the
+    implementation's MC kernels once a picture and no other kernel."""
     _require_cuda()
     monkeypatch.setenv("MP2V_MC_IMPL", impl)
     data, want = fixtures.load("natural_576_420_16")
@@ -521,7 +629,8 @@ def test_decode_natural_content(monkeypatch, impl, gop_chunk):
     counts = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
               if n != before.get(k, 0)}
     assert fixtures.check_frames(frames, want) == want["yuv_sha256"]
-    assert counts == {"idct8x8": 16 // gop_chunk if gop_chunk else 16,
+    chunks = 16 // gop_chunk if gop_chunk else 16
+    assert counts == {"transport": chunks * TRANSPORT_LAUNCHES,
                       **{k: 16 for k in FRAME_MC[impl]}}
 
 
@@ -705,9 +814,9 @@ def test_swar_field_kernel_matches_plain_on_every_kind(H, W, tile, kind,
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,impl,kernels", [
     ("bench_1080p_420_16", "roll",
-     {"idct8x8": 1, "mc_roll_luma": 16, "mc_roll_uv": 16}),
-    ("bench_1080p_420_16", "swar", {"idct8x8": 1, "mc_swar_yuv": 16}),
-    ("interlaced_1080_422_16", "swar", {"idct8x8": 1, "mc_swar_field": 48}),
+     {"transport": 3, "mc_roll_luma": 16, "mc_roll_uv": 16}),
+    ("bench_1080p_420_16", "swar", {"transport": 3, "mc_swar_yuv": 16}),
+    ("interlaced_1080_422_16", "swar", {"transport": 3, "mc_swar_field": 48}),
 ])
 def test_decode_fixture_under_mc_impl(monkeypatch, name, impl, kernels):
     """Under ``MP2V_MC_IMPL`` roll and swar the fixtures decode to the same
@@ -907,16 +1016,17 @@ def test_swar_band_kernels_match_plain(form, bidir):
 # pictures), the interlaced stream on K4
 BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
          "natural_576_420_16")
-# MP2V_MC_IMPL -> (streams, launches of their decode_batch on one card: K1
-# once a step, the longest stream of each group setting its steps; the MC
-# kernels once a stream a step, padding included)
+# MP2V_MC_IMPL -> (streams, launches of their decode_batch on one card: the
+# chunk transport once a step (three launches), the longest stream of each
+# group setting its steps; the MC kernels once a stream a step, padding
+# included)
 BATCH_CASES = {
-    "mxu": (BATCH, {"idct8x8": 48, "mc_recon_blocks_luma": 48,
+    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_luma": 48,
                     "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
                     "mc_field_blocks_uv": 16}),
-    "roll": (BATCH[:2], {"idct8x8": 16, "mc_roll_luma": 32,
+    "roll": (BATCH[:2], {"transport": 48, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
-    "swar": (BATCH[:2], {"idct8x8": 16, "mc_swar_yuv": 32}),
+    "swar": (BATCH[:2], {"transport": 48, "mc_swar_yuv": 32}),
 }
 
 
@@ -930,7 +1040,7 @@ def _launched(before):
 @pytest.mark.parametrize("impl", sorted(BATCH_CASES))
 def test_decode_batch_fixtures(monkeypatch, impl):
     """``decode_batch`` of the committed streams on the card: every
-    stream to its JAX hash, K1 once a step."""
+    stream to its JAX hash, the chunk transport once a step."""
     _require_cuda()
     monkeypatch.setenv("MP2V_MC_IMPL", impl)
     names, launches = BATCH_CASES[impl]
@@ -944,17 +1054,19 @@ def test_decode_batch_fixtures(monkeypatch, impl):
 
 
 # (fixture, MP2V_MC_IMPL) -> launches of its decode in 4 bands on one card:
-# K1 once a picture, the MC kernels once a band a picture (the interlaced
-# stream's I picture, which has no field MB, on the frame kernels)
+# the chunk transport once a picture (three launches), the MC kernels once
+# a band a picture (the interlaced stream's I picture, which has no field
+# MB, on the frame kernels)
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_blocks_luma": 64, "mc_recon_blocks_uv": 64},
-    ("bench_1080p_420_16", "swar"): {"idct8x8": 16, "mc_swar_yuv": 64},
+        "transport": 48, "mc_recon_blocks_luma": 64,
+        "mc_recon_blocks_uv": 64},
+    ("bench_1080p_420_16", "swar"): {"transport": 48, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "idct8x8": 16, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
+        "transport": 48, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
         "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
     ("interlaced_1080_422_16", "swar"): {
-        "idct8x8": 16, "mc_swar_yuv": 4, "mc_swar_field": 180},
+        "transport": 48, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }
 
 

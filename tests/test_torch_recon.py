@@ -65,11 +65,44 @@ def test_prepare_blob_byte_identical(chunk, start, t, scat_u16):
     assert jblob.tobytes() == tblob.tobytes()
 
 
-@pytest.mark.parametrize("chunk,start,t,scat_u16", CASES)
-def test_decode_blob_equal(chunk, start, t, scat_u16):
+# int16 values at and next to the type's ends
+ENDS = np.array([32767, -32768, 32766, -32767], np.int16)
+
+
+def _edit(jt, tt, i, edit):
+    """The same edit of picture ``i``'s tokens in both packages' lists:
+    ``"no_coded"`` takes its coded blocks away, ``"full_row"`` makes its
+    first coded row all 64 coefficients, at int16's ends."""
+    for toks in (jt, tt):
+        tok = toks[i][0]
+        if edit == "no_coded":
+            tok.n_coded_blocks = 0
+        elif edit == "full_row":
+            assert tok.n_coded_blocks > 0
+            tok.cblk[0] = np.resize(ENDS, 64)
+            tok.row_nnz[0] = 64
+
+
+# CASES (by their old ids), then a short chunk of 8 in both block-position
+# forms, a picture with no coded block inside a chunk and as a chunk of
+# one, and a row with all 64 coefficients nonzero
+DECODE_CASES = [pytest.param(*c, None, id="-".join(map(str, c)))
+                for c in CASES] + [
+    pytest.param(8, 0, 7, True, None, id="8-0-7-True-short"),
+    pytest.param(8, 0, 7, False, None, id="8-0-7-False-short"),
+    pytest.param(4, 0, 4, True, "no_coded", id="4-0-4-True-no_coded"),
+    pytest.param(1, 2, 1, False, "no_coded", id="1-2-1-False-no_coded"),
+    pytest.param(4, 1, 4, False, "full_row", id="4-1-4-False-full_row"),
+]
+
+
+@pytest.mark.parametrize("chunk,start,t,scat_u16,edit", DECODE_CASES)
+def test_decode_blob_equal(chunk, start, t, scat_u16, edit):
     jt, tt, pcts = _tokens(102)
     jr, tr = _recons(jt, tt, chunk, scat_u16)
     sel = slice(start, start + t)
+    if edit:
+        _edit(jt, tt, start + (t > 1), edit)
     (cap_pairs, cap_k, _), blob = jr.prepare([x[0] for x in jt[sel]],
                                              pcts[sel])
     want = jr._decode_blob(jnp.asarray(blob), cap_pairs=cap_pairs,
@@ -115,11 +148,22 @@ def test_field_blob_byte_identical(cf, scat_u16):
     assert jblob.tobytes() == tblob.tobytes()
 
 
-@pytest.mark.parametrize("scat_u16", [True, False])
-@pytest.mark.parametrize("cf", CHROMA)
-def test_field_decode_blob_equal(cf, scat_u16):
+# every chroma format in both block-position forms (by their old ids),
+# then each with a picture with no coded block and with a full row
+FIELD_DECODE_CASES = [
+    pytest.param(cf, u16, None, id=f"{cf}-{u16}")
+    for cf in CHROMA for u16 in (True, False)] + [
+    pytest.param(cf, u16, edit, id=f"{cf}-{u16}-{edit}")
+    for cf in CHROMA for u16, edit in ((True, "no_coded"),
+                                       (False, "full_row"))]
+
+
+@pytest.mark.parametrize("cf,scat_u16,edit", FIELD_DECODE_CASES)
+def test_field_decode_blob_equal(cf, scat_u16, edit):
     jt, tt, pcts = _tokens(120 + cf, cf=cf, **FIELD)
     jr, tr = _recons(jt, tt, 4, scat_u16, field=True)
+    if edit:
+        _edit(jt, tt, 2, edit)
     (cap_pairs, cap_k, _), blob = jr.prepare([x[0] for x in jt[1:4]],
                                              pcts[1:4])
     want = jr._decode_blob(jnp.asarray(blob), cap_pairs=cap_pairs,

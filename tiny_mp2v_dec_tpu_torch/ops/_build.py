@@ -56,6 +56,9 @@ _MC_BLOCKS = [C.POINTER(_P)] + [_I] * 8 + [_P]
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "mp2v_idct8x8": [_P, _P, _I, _P],
+    # the chunk transport: pair_pos, pair_val, row_nnz, scat, pic_k,
+    # cap_pairs, cap_k, chunk, n_rows, scat_u16, scratch, out, stream
+    "mp2v_transport": [_P] * 5 + [_I] * 5 + [_P] * 3,
     "mp2v_mc_recon_luma": _MC,
     "mp2v_mc_recon_uv": _MC,
     "mp2v_mc_field_luma": _MC,

@@ -11,7 +11,11 @@ along the second, and the result lands in raster order.
 
 :func:`idct_blocks` dispatches on where its tensor lies: a CPU tensor takes
 the plain version :func:`idct_blocks_ref`, a CUDA tensor the kernel of
-``csrc/idct.cu``; any other device raises.
+``csrc/idct.cu``; any other device raises.  The decoder's paths run K1's
+transform inside the chunk transport (``csrc/transport.cu``,
+``ops/recon.py``), which shares its device code (``csrc/idct8x8.cuh``);
+this wrapper serves ``chip_smoke.py``, ``tools/ab_kernel_times.py`` and
+the tests.
 """
 from __future__ import annotations
 

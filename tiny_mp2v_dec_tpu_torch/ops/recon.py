@@ -12,9 +12,10 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
    memory on ``cuda``);
 2. :meth:`GopRecon.dispatch` uploads the blob without blocking the host
    and runs :meth:`GopRecon._decode_blob` — the pairs become coefficient
-   rows, kernel K1 transforms every coded block of the chunk in one
-   launch, and the residual blocks land in each picture's dense block
-   grid;
+   rows, K1's transform runs on every coded block of the chunk, and the
+   residual blocks land in each picture's dense block grid, all in the
+   chunk transport's three launches (``csrc/transport.cu``,
+   :func:`transport_grid`);
 3. :meth:`GopRecon._gop` loops over the pictures in Python: per picture
    kernels K2 (luma) and K3 (U+V) predict, add and saturate — or, in a
    chunk with field-predicted MBs (``field_support=True``), their field
@@ -29,9 +30,10 @@ The MC kernels are those of the JAX package's ``mc_impl`` (see
 (frame prediction), ``swar`` K7 (packed prediction, one launch per
 picture) or K8 (per component, in a chunk with field MBs).
 ``use_cuda_idct`` / ``use_cuda_mc`` (the JAX package's ``use_pallas_idct``
-/ ``use_pallas_mc``) set to ``False`` take the kernels' plain versions on
-any device, which is what the kernel gate (``tools/perf_gate.py``) holds
-the kernels against; the decoder never passes them.
+/ ``use_pallas_mc``) set to ``False`` take the plain versions — of the
+chunk transport, of the MC kernels — on any device, which is what the
+kernel gate (``tools/perf_gate.py``) holds the kernels against; the
+decoder never passes them.
 
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
@@ -56,7 +58,8 @@ from ..headers import CHROMA_420
 from ..runtime.spans import Spans
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
-from .idct import idct_blocks, idct_blocks_ref
+from . import _build
+from .idct import idct_blocks_ref
 from .mc_fused import (_plane_from_tiles, _scale_mv, _tiles_from_blocks,
                        _unpack_meta2, fused_mc_pred_swar_field,
                        fused_mc_pred_swar_field_ref, fused_mc_pred_swar_yuv,
@@ -363,7 +366,8 @@ class GopRecon:
     ``field_support`` selects the metadata form and, with ``mc_impl``, the
     kernels (see :class:`DeviceRecon`); a frame-prediction recon refuses
     field-predicted MBs, whose second-unit vectors its 5-column metadata
-    would drop.  ``use_cuda_idct=False`` takes K1's plain version, and
+    would drop.  ``use_cuda_idct=False`` takes the chunk transport's plain
+    version (:meth:`_decode_blob_ref`, K1's plain version inside), and
     ``use_cuda_mc`` is :class:`DeviceRecon`'s."""
 
     def __init__(self, geom: PictureGeometry, chunk: int, device,
@@ -423,12 +427,49 @@ class GopRecon:
     def _decode_blob(self, blob, *, cap_pairs, cap_k):
         """Device-side transport decode: uint8 blob tensor -> (residual
         dense (chunk, n_rows, 64) int16, meta (chunk, n_mb, cols) int16,
-        step flags (chunk,) uint8)."""
+        step flags (chunk,) uint8); ``meta`` and the flags are views of
+        the blob.  A CUDA tensor takes the chunk transport kernel
+        (:func:`transport_grid`); a CPU tensor, or any device under
+        ``use_cuda_idct=False``, the plain version
+        (:meth:`_decode_blob_ref`); anything else raises."""
+        dev = blob.device
+        if dev.type == "cpu" or not self.use_cuda_idct:
+            return self._decode_blob_ref(blob, cap_pairs=cap_pairs,
+                                         cap_k=cap_k)
+        if dev.type != "cuda":
+            raise ValueError(f"_decode_blob: no kernel for device {dev}")
+        geom = self.geom
+        n_rows = geom.n_mb * geom.blocks_per_mb
+        layout = self._layout(cap_pairs, cap_k)
+        dense = transport_grid(blob, layout, cap_pairs=cap_pairs,
+                               cap_k=cap_k, chunk=self.chunk, n_rows=n_rows,
+                               scat_u16=self._scat_u16)
+        return (dense.view(self.chunk, n_rows, 64),
+                *self._meta_flags(blob, layout))
+
+    def _meta_flags(self, blob, layout):
+        """The blob's metadata rows (chunk, n_mb, cols) int16 and step
+        flags (chunk,) uint8, as views of it."""
+        o5, o6 = layout[5:7]
+        nm = self.chunk * self.geom.n_mb * self._cols
+        meta = blob[o6:o6 + nm * 2].view(torch.int16).reshape(
+            self.chunk, self.geom.n_mb, self._cols)
+        return meta, blob[o5:o5 + self.chunk]
+
+    def _decode_blob_ref(self, blob, *, cap_pairs, cap_k,
+                         transform=idct_blocks_ref):
+        """The plain version of :meth:`_decode_blob`, on any device: the
+        JAX package's ops in PyTorch (row ids rebuilt by scatter-adds and
+        cumsums, the pairs expanded into a zeroed coefficient buffer, the
+        row ``transform``, the rows scattered into a zeroed grid).  The
+        transform is K1's plain version; K1 itself (``idct_blocks``) gives
+        the path the transport kernel replaced, which the smoke times."""
         geom = self.geom
         dev = blob.device
         n_rows = geom.n_mb * geom.blocks_per_mb
         span = self.chunk * n_rows
-        o0, o1, o2, o3, o4, o5, o6, _ = self._layout(cap_pairs, cap_k)
+        layout = self._layout(cap_pairs, cap_k)
+        o0, o1, o2, o3, o4 = layout[:5]
         i64 = torch.int64
         pair_pos = blob[o0:o0 + cap_pairs].to(i64)
         pair_val = blob[o1:o1 + cap_pairs * 2].view(torch.int16)
@@ -450,10 +491,6 @@ class GopRecon:
             scat_pos = blob[o3:o3 + cap_k * 4].view(torch.int32).to(i64)
             # padding rows get distinct indices past the grid
             scat_pos = torch.where(scat_pos >= span, span + iota_k, scat_pos)
-        flags = blob[o5:o5 + self.chunk]
-        nm = self.chunk * geom.n_mb * self._cols
-        meta = blob[o6:o6 + nm * 2].view(torch.int16).reshape(
-            self.chunk, geom.n_mb, self._cols)
 
         # 1) nonzero pairs -> coded coefficient rows.  The row id of each
         #    pair is rebuilt from per-row nonzero counts: rows mark their
@@ -469,14 +506,14 @@ class GopRecon:
                                row * 64 + pair_pos)
         coeff = torch.zeros(cap_k * 64 + 1, dtype=torch.int16, device=dev)
         coeff.index_put_((pair_idx,), pair_val)
-        # 2) one IDCT over every coded block of the whole chunk (K1)
-        idct = idct_blocks if self.use_cuda_idct else idct_blocks_ref
-        res_rows = idct(coeff[:cap_k * 64].view(cap_k, 64))
+        # 2) one IDCT over every coded block of the whole chunk
+        res_rows = transform(coeff[:cap_k * 64].view(cap_k, 64))
         # 3) place residual blocks into the per-picture dense grid
         dense = torch.zeros((span + cap_k, 64), dtype=torch.int16,
                             device=dev)
         dense.index_copy_(0, scat_pos, res_rows.reshape(cap_k, 64))
-        return dense[:span].view(self.chunk, n_rows, 64), meta, flags
+        return (dense[:span].view(self.chunk, n_rows, 64),
+                *self._meta_flags(blob, layout))
 
     def _gop(self, blob, r0, r1, *, cap_pairs, cap_k, step_flags, bidir):
         """Reconstruct the chunk's pictures in order.  ``step_flags``: the
@@ -689,10 +726,10 @@ class GopRecon:
 
     def upload_decode(self, staged, devices) -> dict:
         """Upload a staged chunk (:meth:`upload`), release its slot, and
-        decode its blob (:meth:`_decode_blob`: one K1 launch) once on each
-        distinct device of ``devices``, the uploaded blob copied from this
-        recon's device to the others: a dict device -> ``(dense, meta,
-        step flags)``."""
+        decode its blob (:meth:`_decode_blob`: the chunk transport) once
+        on each distinct device of ``devices``, the uploaded blob copied
+        from this recon's device to the others: a dict device -> ``(dense,
+        meta, step flags)``."""
         (cap_pairs, cap_k), _, _ = staged
         up = self._upload_released(staged)
         out = {}
@@ -739,6 +776,46 @@ class GopRecon:
                         cap_k=cap_k, step_flags=step_flags, bidir=bidir)
         self.spans.end(span, "recon", unit)
         return out
+
+
+# kernels the chunk transport launches a call (csrc/transport.cu)
+TRANSPORT_LAUNCHES = 3
+
+
+def transport_grid(blob, layout, *, cap_pairs, cap_k, chunk, n_rows,
+                   scat_u16):
+    """The chunk transport kernel (``csrc/transport.cu``) on a CUDA blob,
+    on the current stream of its device: the blob's pairs, row counts,
+    block positions and per-picture row counts (the sections of
+    ``layout``, :meth:`GopRecon._layout`) -> the residual block grid
+    ``(chunk * n_rows, 64)`` int16, every block written once by the
+    kernel.  Raises unless the blob is a contiguous 1-D uint8 tensor of at
+    least the layout's length, 4-byte aligned (its int16 and int32
+    sections are read in place).  Counts :data:`TRANSPORT_LAUNCHES` under
+    ``"transport"`` in ``_build.LAUNCHES``."""
+    if (blob.dtype != torch.uint8 or blob.dim() != 1
+            or not blob.is_contiguous() or blob.numel() < layout[-1]):
+        raise ValueError("transport_grid: expected a contiguous 1-D uint8 "
+                         f"blob of at least {layout[-1]} bytes, got "
+                         f"{tuple(blob.shape)} {blob.dtype}")
+    if blob.data_ptr() % 4:
+        raise ValueError("transport_grid: the blob must be 4-byte aligned "
+                         "(its sections are read in their own widths)")
+    span = chunk * n_rows
+    dev = blob.device
+    dense = torch.empty((span, 64), dtype=torch.int16, device=dev)
+    # rowblk, blkrow and the tiles' pair offsets: the kernel reads no entry
+    # it has not written in the same call
+    scratch = torch.empty(cap_k + span + (cap_k + 31) // 32,
+                          dtype=torch.int32, device=dev)
+    base = blob.data_ptr()
+    rc = _build.kernel_library().mp2v_transport(
+        *(base + o for o in layout[:5]), cap_pairs, cap_k, chunk, n_rows,
+        int(scat_u16), scratch.data_ptr(), dense.data_ptr(),
+        _build.stream_handle(dev))
+    _build.check("mp2v_transport", rc)
+    _build.LAUNCHES["transport"] += TRANSPORT_LAUNCHES
+    return dense
 
 
 def on_device(dev):

@@ -14,8 +14,8 @@ the reconstruction over devices, both on the decoder's own kernels:
 
 Both carry the tokens as the chunk path's blob (``GopRecon.prepare``, the
 picture or the stream in place of the chunk's picture index), upload it
-once and decode it (pairs to rows, one K1 launch) once per distinct
-device.  Reference lists are updated on the host, which knows the picture
+once and decode it (pairs to rows, IDCT and residual grid: the chunk
+transport's three launches) once per distinct device.  Reference lists are updated on the host, which knows the picture
 types.
 
 A mesh here is a list of ``torch.device`` (:func:`make_mesh`).  Where the

@@ -18,8 +18,8 @@ JAX package's ``tools/perf_gate.py``, gates 1, 2 and 3.
   The kernels' step must be at least as fast (1.0x).
 * Gate 3: the serving step — ``StreamBatchRecon.dispatch`` of 2 streams
   on the card, the first 2 pictures of the same stream as their pictures,
-  B-coded from zero references (the JAX gate's step): upload, one K1, each
-  stream's MC — with the hand kernels against their plain versions, timed
+  B-coded from zero references (the JAX gate's step): upload, one chunk
+  transport, each stream's MC — with the hand kernels against their plain versions, timed
   as gate 2 (``tbench.step_ms``) for the same reason.  The kernels' step
   must be at least as fast (1.0x; the JAX gate's 2x held Pallas against an
   XLA gather formulation, which the port does not have).
