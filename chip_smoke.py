@@ -12,7 +12,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and cold), the chunk transport (:func:`check_transport`: pairs to rows,
    K1's transform and the residual grid in three launches, on both
    fixtures' 16-picture chunks, a batch step of 8 and a chunk of 1, timed
-   beside the PyTorch transport and K1 launch it replaced), K2 (luma
+   beside its plain version), K2 (luma
    MC+recon), K3 (U+V MC+recon, at the chroma tile of every format: 8x8,
    16x8, 16x16), K4 (their field form:
    luma 16x16, chroma at every tile), K5 and K6 (the same function through
@@ -435,14 +435,11 @@ def check_transport(torch) -> dict:
     """The chunk transport (``csrc/transport.cu``, three launches) on each
     of :data:`TRANSPORT_CASES` as the decoder prepares and uploads it:
     ``(dense, meta, flags)`` equal to the plain version's, with the device
-    ms of the kernel (``ms``), of what it replaced on the decoder's paths
-    (``replaced_ms``: the plain version with K1 as its row transform, 38
-    PyTorch kernels and one K1 launch), of the plain version, and the
-    bound: the grid written and the blob's sections read (pairs, counts,
-    block positions, rows a picture) over the memory rate, beside K1's
+    ms of the kernel (``ms``) and of the plain version, and the bound: the
+    grid written and the blob's sections read (pairs, counts, block
+    positions, rows a picture) over the memory rate, beside K1's
     operations on the coded rows over the arithmetic rate."""
     from tiny_mp2v_dec_tpu_torch import DecoderConfig, MP2VDecoder
-    from tiny_mp2v_dec_tpu_torch.ops import idct
     from tiny_mp2v_dec_tpu_torch.ops.recon import GopRecon
     recs = {}
     for label, name, chunk, pictures, batch in TRANSPORT_CASES:
@@ -466,13 +463,10 @@ def check_transport(torch) -> dict:
         def plain():
             return rec._decode_blob_ref(up, **kw)
 
-        def replaced():
-            return rec._decode_blob_ref(up, **kw, transform=idct.idct_blocks)
-
-        got, want, old = kern(), plain(), replaced()
+        got, want = kern(), plain()
         torch.cuda.synchronize()
-        for part, g, w, o in zip(("dense", "meta", "flags"), got, want, old):
-            if not (torch.equal(g, w) and torch.equal(o, w)):
+        for part, g, w in zip(("dense", "meta", "flags"), got, want):
+            if not torch.equal(g, w):
                 fail(f"transport {name} {label}: {part} differs from the "
                      f"plain version's (max abs err "
                      f"{max_abs_err(torch, g, w)})")
@@ -481,7 +475,6 @@ def check_transport(torch) -> dict:
         b_ms = (read + got[0].numel() * 2) / HBM_BYTES_PER_MS
         o_ms = coded * 64 * OPS_PER_OUT["idct8x8"] / OPS_PER_MS
         r = {"max_abs_err": 0, "ms": cuda_ms(torch, kern),
-             "replaced_ms": cuda_ms(torch, replaced),
              "plain_ms": cuda_ms(torch, plain),
              "bound_ms": max(b_ms, o_ms),
              "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -490,15 +483,13 @@ def check_transport(torch) -> dict:
              "grid_bytes": got[0].numel() * 2, "blob_bytes_read": read}
         print(f"transport {name} {label}: {len(toks)} pictures, {coded} "
               f"coded rows of {cap_k}, grid {r['grid_bytes'] / 1e6:.1f} MB; "
-              f"equal to plain; kernel {r['ms']:.4f} ms, replaced (PyTorch "
-              f"transport + K1) {r['replaced_ms']:.4f} ms, plain "
+              f"equal to plain; kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; operations {o_ms:.4f} ms)")
         recs[f"{name} {label}"] = r
     main = dict(next(iter(recs.values())))
     main["chunks"] = {n: {k: r[k] for k in ("chunk", "pictures", "ms",
-                                            "replaced_ms", "plain_ms",
-                                            "bound_ms")}
+                                            "plain_ms", "bound_ms")}
                       for n, r in recs.items()}
     return main
 

@@ -25,7 +25,9 @@ import torch
 from blocks_cases import blocks_case, kernel_model
 from tiny_mp2v_dec_tpu_torch import headers as H
 from tiny_mp2v_dec_tpu_torch.ops import _build, mc_fused
-from tiny_mp2v_dec_tpu_torch.tokenizer.types import CHROMA_INFO
+from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
+from tiny_mp2v_dec_tpu_torch.tokenizer.types import (CHROMA_INFO,
+                                                     PictureGeometry)
 
 CFS = (H.CHROMA_420, H.CHROMA_422, H.CHROMA_444)
 # (mb rows of the band, its first row): the whole 5-row picture, a band
@@ -96,12 +98,14 @@ def _vector_form(refs0, refs1, dense, meta, cf, mb0, bidir):
     return out
 
 
-def _blocks_form(refs0, refs1, dense, meta, cf, mb0, bidir):
+def _blocks_form(refs0, refs1, dense, meta, cf, mb0, bidir, plain=False):
+    luma, uv = ((mc_fused.fused_mc_recon_blocks_ref,
+                 mc_fused.fused_mc_recon_uv_blocks_ref) if plain else
+                (mc_fused.fused_mc_recon_blocks,
+                 mc_fused.fused_mc_recon_uv_blocks))
     kw = dict(chroma_format=cf, mbw=MBW, mb0=mb0, bidir=bidir)
-    y = mc_fused.fused_mc_recon_blocks(refs0[0], refs1[0], dense, meta, **kw)
-    u, v = mc_fused.fused_mc_recon_uv_blocks(tuple(refs0[1:]),
-                                             tuple(refs1[1:]), dense, meta,
-                                             **kw)
+    y = luma(refs0[0], refs1[0], dense, meta, **kw)
+    u, v = uv(tuple(refs0[1:]), tuple(refs1[1:]), dense, meta, **kw)
     return [y, u, v]
 
 
@@ -131,6 +135,38 @@ def test_blocks_form_equals_vector_form(cf, field, bidir, band):
              + kernel_model(r0[1:], r1[1:], *rest, uv=True))
     for c, (g, m) in enumerate(zip(got, model)):
         np.testing.assert_array_equal(g.numpy(), m, err_msg=f"component {c}")
+
+
+@pytest.mark.parametrize("band", sorted(BANDS))
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("field", [False, True])
+@pytest.mark.parametrize("cf", CFS)
+@pytest.mark.parametrize("impl", ["roll", "swar"])
+def test_roll_and_swar_recon_equal_the_blocks_form(impl, cf, field, bidir,
+                                                   band):
+    """``DeviceRecon._recon_from_residual`` under ``roll`` (K5/K6's
+    wrappers; with field rows, the explicit roll's plain version) and
+    ``swar`` (K7's picture form, or K8 per component, then the epilogue),
+    which lay the residual grid and the metadata rows out through
+    ``blocks_to_vectors``, equal the blocks form's plain version: every
+    chroma format, frame and field rows, both directions and forward only,
+    the whole picture and a band of MB rows."""
+    seed = 3000 + 100 * (impl == "swar") + 10 * cf + 4 * field + 2 * bidir \
+        + (band == "band")
+    refs0, refs1, dense, meta, mb0 = _case(seed, cf, field, band)
+    geom = PictureGeometry(width=16 * MBW, height=16 * MBH, chroma_format=cf)
+    recon = DeviceRecon(geom, "cpu", field_support=field, mc_impl=impl)
+    rows = BANDS[band][0]
+    before = dict(_build.LAUNCHES)
+    got = recon._recon_from_residual(
+        dense, meta, *refs0, *refs1, bidir=bidir,
+        band=None if band == "whole" else (mb0 // MBW, rows))
+    want = _blocks_form(refs0, refs1, dense, meta, cf, mb0, bidir,
+                        plain=True)
+    assert dict(_build.LAUNCHES) == before
+    for c, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.uint8 and g.shape == w.shape, c
+        assert torch.equal(g, w), f"component {c}"
 
 
 def test_cases_reach_what_they_are_for():

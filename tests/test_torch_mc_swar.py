@@ -260,7 +260,7 @@ def test_device_recon_swar_takes_the_picture_form_without_field_support():
     geom = PictureGeometry(width=32, height=32, chroma_format=HD.CHROMA_420)
     frame = DeviceRecon(geom, "cpu", mc_impl="swar")
     assert frame._mc_fns is mc_fused.fused_mc_pred_swar_yuv
-    assert DeviceRecon(geom, "cpu", mc_impl="swar", use_cuda_mc=False
+    assert DeviceRecon(geom, "cpu", mc_impl="swar", use_kernels=False
                        )._mc_fns is mc_fused.fused_mc_pred_swar_yuv_ref
     field = DeviceRecon(geom, "cpu", field_support=True, mc_impl="swar")
     assert field._mc_fns is mc_fused.fused_mc_pred_swar_field

@@ -336,28 +336,17 @@ def test_band_equals_rows_of_the_whole_picture(impl, field, cf):
 
 
 def _swar_meta(geom, vecs, comp, field):
-    """Whole-picture vectors of component ``comp`` as DeviceRecon._planes
-    makes them: ((syf, sxf, phf, syb, sxb, phb), mode, field tuples)."""
-    from tiny_mp2v_dec_tpu_torch.ops.recon import _scale_mv
-    from tiny_mp2v_dec_tpu_torch.tokenizer.types import CHROMA_INFO
-    _, fwd, bwd, fpred, _, mv, mvfs = vecs
-    xs, ys, _ = CHROMA_INFO[geom.chroma_format]
-    h, w = (16, 16) if comp == 0 else (16 >> ys, 16 >> xs)
-    Hr, Wr = geom.luma_padded if comp == 0 else geom.chroma_padded
-    recon = DeviceRecon(geom, "cpu")
-    py, px = recon._band_pos(comp, None)
-    mvs = mv.to(torch.int16) if comp == 0 else _scale_mv(
-        mv.to(torch.int16), geom.chroma_format)
-    mode = (fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
-            + 8 * fpred.to(torch.int32))
-    frame = (*mc_fused.mc_meta(py, px, mvs[:, 0, 0, 0], mvs[:, 0, 0, 1],
-                               Hr, Wr, h, w),
-             *mc_fused.mc_meta(py, px, mvs[:, 0, 1, 0], mvs[:, 0, 1, 1],
-                               Hr, Wr, h, w))
-    flds = [mc_fused.mc_field_meta(py, px, mvs[:, :, s], mvfs[:, :, s], Hr,
-                                   Wr, h, w) for s in range(2)] if field \
-        else None
-    return frame, mode, flds, (h, w)
+    """Whole-picture vectors of component ``comp`` as the recon's swar
+    path derives them (``mc_fused.blocks_to_vectors`` on the metadata rows):
+    ((syf, sxf, phf, syb, sxb, phb), mode, field tuples, tile)."""
+    meta = _meta_rows(vecs, field)
+    dense = torch.zeros((meta.shape[0] * geom.blocks_per_mb, 64),
+                        dtype=torch.int16)
+    shape = geom.luma_padded if comp == 0 else geom.chroma_padded
+    _, v, h, w = mc_fused.blocks_to_vectors(
+        torch.zeros(shape, dtype=torch.uint8), dense, meta,
+        geom.chroma_format, geom.mb_width, uv=comp != 0)
+    return tuple(v[:6]), v[6], v[7:] if field else None, (h, w)
 
 
 @pytest.mark.parametrize("bidir", [True, False])

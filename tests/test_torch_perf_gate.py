@@ -113,7 +113,7 @@ FIELD = {"fpfd": False, "allow_field_motion": True}
 @pytest.mark.parametrize("field", [False, True])
 @pytest.mark.parametrize("impl", trecon.MC_IMPLS)
 def test_gop_recon_plain_switches_match_default(impl, field):
-    """``GopRecon(use_cuda_idct=False, use_cuda_mc=False)`` — the plain
+    """``GopRecon(use_kernels=False)`` — the plain
     versions the kernel gate times — prepares the same blob and decodes
     the same planes as the default recon, under every MC implementation
     and both metadata forms."""
@@ -126,11 +126,10 @@ def test_gop_recon_plain_switches_match_default(impl, field):
     outs = []
     for use in (True, False):
         gr = trecon.GopRecon(seq[0][1], 8, "cpu", field_support=field,
-                             mc_impl=impl, use_cuda_idct=use,
-                             use_cuda_mc=use)
-        assert gr.use_cuda_idct is use
+                             mc_impl=impl, use_kernels=use)
+        assert gr.use_kernels is use
         if not (impl == "roll" and field):
-            assert gr.inner.use_cuda_mc is use
+            assert gr.inner.use_kernels is use
         staged = gr.prepare(toks, pcts)
         outs.append((staged[1].tobytes(), gr.dispatch(staged)))
     assert outs[0][0] == outs[1][0]
@@ -139,19 +138,21 @@ def test_gop_recon_plain_switches_match_default(impl, field):
 
 def test_plain_switch_takes_the_plain_functions():
     g = PictureGeometry(width=32, height=32, chroma_format=1)
-    plain = trecon.DeviceRecon(g, "cpu", mc_impl="swar", use_cuda_mc=False)
+    plain = trecon.DeviceRecon(g, "cpu", mc_impl="swar", use_kernels=False)
     assert plain._mc_fns is mc_fused.fused_mc_pred_swar_yuv_ref
     plain = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="swar",
-                               use_cuda_mc=False)
+                               use_kernels=False)
     assert plain._mc_fns is mc_fused.fused_mc_pred_swar_field_ref
     # mxu takes the blocks form of K2/K3/K4, frame or field by the rows
     kern = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="mxu")
     assert kern._mc_fns == (mc_fused.fused_mc_recon_blocks,
                             mc_fused.fused_mc_recon_uv_blocks)
-    plain = trecon.DeviceRecon(g, "cpu", mc_impl="mxu", use_cuda_mc=False)
+    plain = trecon.DeviceRecon(g, "cpu", mc_impl="mxu", use_kernels=False)
     assert plain._mc_fns == (mc_fused.fused_mc_recon_blocks_ref,
                              mc_fused.fused_mc_recon_uv_blocks_ref)
-    # an explicit roll with field support has no kernel: plain on the CPU
+    # an explicit roll with field support has no kernel: the blocks form's
+    # plain version on the CPU
     roll = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="roll")
-    assert not roll.use_cuda_mc and roll._mc_fns == (
-        mc_fused.fused_mc_recon_ref, mc_fused.fused_mc_recon_uv_ref)
+    assert not roll.use_kernels and roll._mc_fns == (
+        mc_fused.fused_mc_recon_blocks_ref,
+        mc_fused.fused_mc_recon_uv_blocks_ref)

@@ -29,11 +29,12 @@ The MC kernels are those of the JAX package's ``mc_impl`` (see
 :func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
 (frame prediction), ``swar`` K7 (packed prediction, one launch per
 picture) or K8 (per component, in a chunk with field MBs).
-``use_cuda_idct`` / ``use_cuda_mc`` (the JAX package's ``use_pallas_idct``
-/ ``use_pallas_mc``) set to ``False`` take the plain versions — of the
-chunk transport, of the MC kernels — on any device, which is what the
-kernel gate (``tools/perf_gate.py``) holds the kernels against; the
-decoder never passes them.
+``roll`` and ``swar`` take their per-MB vectors and residual planes from
+:func:`.mc_fused.blocks_to_vectors`.  ``use_kernels=False`` (the JAX
+package's ``use_pallas_idct`` / ``use_pallas_mc`` together) takes the plain
+versions — of the chunk transport, of the MC kernels — on any device,
+which is what the kernel gate (``tools/perf_gate.py``) holds the kernels
+against; the decoder never passes it.
 
 The reference planes are the decoder's only device state: tuples
 ``(y, u, v)`` of ``luma_padded`` / ``chroma_padded`` uint8 tensors.
@@ -54,36 +55,33 @@ import time
 import numpy as np
 import torch
 
-from ..headers import CHROMA_420
 from ..runtime.spans import Spans
 from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from . import _build
 from .idct import idct_blocks_ref
-from .mc_fused import (_plane_from_tiles, _scale_mv, _tiles_from_blocks,
-                       _unpack_meta2, fused_mc_pred_swar_field,
+from .mc_fused import (blocks_to_vectors, fused_mc_pred_swar_field,
                        fused_mc_pred_swar_field_ref, fused_mc_pred_swar_yuv,
                        fused_mc_pred_swar_yuv_ref, fused_mc_recon_blocks,
                        fused_mc_recon_blocks_ref, fused_mc_recon_ref,
                        fused_mc_recon_roll, fused_mc_recon_uv_blocks,
                        fused_mc_recon_uv_blocks_ref, fused_mc_recon_uv_ref,
-                       fused_mc_recon_uv_roll, mc_field_meta, mc_meta,
-                       unpack_words)
+                       fused_mc_recon_uv_roll, unpack_words)
 
 MC_IMPLS = ("mxu", "roll", "swar")
-_PLAIN = (fused_mc_recon_ref, fused_mc_recon_uv_ref)
 _BLOCKS = ((fused_mc_recon_blocks, fused_mc_recon_uv_blocks),
            (fused_mc_recon_blocks_ref, fused_mc_recon_uv_blocks_ref))
-# (impl, field support) -> (kernel wrappers, plain versions): under mxu the
-# blocks form's (luma, U+V), which reads the metadata rows and the residual
-# block grid; under roll the (luma, U+V) pair of the vector form; under
-# swar the one prediction function: of a whole picture, or under field
-# support of one component
+# (impl, field support) -> (kernel wrappers, plain versions): a (luma, U+V)
+# pair of the blocks form, which reads the metadata rows and the residual
+# block grid (mxu; and roll with field support, which has no kernel); a
+# (luma, U+V) pair of the vector form (roll); or swar's one prediction
+# function: of a whole picture, or under field support of one component
 _MC_FNS = {
     ("mxu", False): _BLOCKS,
     ("mxu", True): _BLOCKS,
-    ("roll", False): ((fused_mc_recon_roll, fused_mc_recon_uv_roll), _PLAIN),
-    ("roll", True): (None, _PLAIN),
+    ("roll", False): ((fused_mc_recon_roll, fused_mc_recon_uv_roll),
+                      (fused_mc_recon_ref, fused_mc_recon_uv_ref)),
+    ("roll", True): (None, _BLOCKS[1]),
     ("swar", False): (fused_mc_pred_swar_yuv, fused_mc_pred_swar_yuv_ref),
     ("swar", True): (fused_mc_pred_swar_field, fused_mc_pred_swar_field_ref),
 }
@@ -155,56 +153,34 @@ class DeviceRecon:
     ``field_support=False`` takes the frame-prediction kernels (K2/K3,
     K5/K6 or K7) and ignores field motion; ``True`` takes a field form (K4
     or K8), which predicts each MB frame- or field-based by its field_pred
-    flag.  ``mc_impl`` as :func:`resolve_mc_impl`.  ``use_cuda_mc=True``
+    flag.  ``mc_impl`` as :func:`resolve_mc_impl`.  ``use_kernels=True``
     takes the MC kernel wrappers (the kernels on ``cuda``, their plain
     versions on the CPU), ``False`` the plain versions on any device.  An
     explicit ``"roll"`` with field support has no kernel: the JAX package
-    takes its XLA gather path there; the port takes the plain version on
-    the CPU and raises on any other device rather than run it on the card,
-    unless ``use_cuda_mc=False`` asks for the plain version."""
+    takes its XLA gather path there; the port takes the blocks form's
+    plain version on the CPU and raises on any other device rather than
+    run it on the card, unless ``use_kernels=False`` asks for the plain
+    version."""
 
     def __init__(self, geom: PictureGeometry, device,
                  field_support: bool = False, mc_impl: str | None = None,
-                 use_cuda_mc: bool = True):
+                 use_kernels: bool = True):
         self.geom = geom
         self.device = torch.device(device)
         self.field_support = field_support
         self.mc_impl = resolve_mc_impl(mc_impl, field_support)
         kernels, plain = _MC_FNS[self.mc_impl, field_support]
-        if kernels is None and use_cuda_mc:
+        if kernels is None and use_kernels:
             if self.device.type != "cpu":
                 raise ValueError("mc_impl='roll' has no field-prediction "
                                  "kernel; use 'mxu' or 'swar'")
-            use_cuda_mc = False
-        self.use_cuda_mc = use_cuda_mc
+            use_kernels = False
+        self.use_kernels = use_kernels
         # (luma, U+V) reconstruction functions; swar's one prediction
         # function
-        self._mc_fns = kernels if self.use_cuda_mc else plain
-        xs, ys, _ = CHROMA_INFO[geom.chroma_format]
-        mb_y, mb_x = np.divmod(np.arange(geom.n_mb), geom.mb_width)
-
-        def vec(a):
-            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
-
-        self._pos = {
-            0: (vec(mb_y * 16), vec(mb_x * 16)),
-            1: (vec((mb_y * 16) >> ys), vec((mb_x * 16) >> xs)),
-        }
+        self._mc_fns = kernels if self.use_kernels else plain
         self._zero_refs = None
         self._transport = None
-
-    def _band_pos(self, comp, band):
-        """Per-MB top-left plane coordinates of component ``comp``.
-        ``band=None``: the whole picture.  ``band=(row0, mbh_local)``: the
-        ``mbh_local`` MB rows from MB row ``row0`` on; the positions stay
-        in whole-plane coordinates (the reference planes are whole), only
-        the tile grid is the band's."""
-        pos = self._pos[0 if comp == 0 else 1]
-        if band is None:
-            return pos
-        row0, mbh_l = band
-        n0, n = row0 * self.geom.mb_width, mbh_l * self.geom.mb_width
-        return pos[0][n0:n0 + n], pos[1][n0:n0 + n]
 
     def _recon_from_residual(self, dense, meta, r0y, r0u, r0v, r1y, r1u,
                              r1v, bidir: bool = True, band=None):
@@ -214,123 +190,54 @@ class DeviceRecon:
         ``band=(row0, mbh_local)`` reconstructs only those MB rows (the
         row-sharded path's band): the grid and the rows cover the band's
         MBs, the reference planes stay whole (motion reaches anywhere in
-        them), and the planes returned are the band's rows.  Under ``mxu``
-        the blocks form takes both inputs as they are, one launch for luma
-        and one for U and V; ``roll`` and ``swar`` lay them out as their
-        kernels' vectors and planes first (:meth:`_planes`)."""
+        them), and the planes returned are the band's rows.  The blocks
+        form takes both inputs as they are, one launch for luma and one for
+        U and V; the other forms take the vectors and residual planes of
+        :func:`.mc_fused.blocks_to_vectors`: the vector form (K5 and K6) one
+        launch for luma and one for U and V, swar one prediction launch for
+        the picture's three components (K7), or under field support one per
+        component (K8), then a plain PyTorch epilogue per component."""
         geom = self.geom
-        if self.mc_impl == "mxu":
-            luma_fn, uv_fn = self._mc_fns
-            kw = dict(chroma_format=geom.chroma_format, mbw=geom.mb_width,
-                      mb0=0 if band is None else band[0] * geom.mb_width,
-                      bidir=bidir)
-            luma = luma_fn(r0y, r1y, dense, meta, **kw)
-            u, v = uv_fn((r0u, r0v), (r1u, r1v), dense, meta, **kw)
+        kw = dict(chroma_format=geom.chroma_format, mbw=geom.mb_width,
+                  mb0=0 if band is None else band[0] * geom.mb_width)
+        fns = self._mc_fns
+        if fns in _BLOCKS:
+            luma = fns[0](r0y, r1y, dense, meta, bidir=bidir, **kw)
+            u, v = fns[1]((r0u, r0v), (r1u, r1v), dense, meta, bidir=bidir,
+                          **kw)
             return luma, u, v
-        n = meta.shape[0]
-        dct_type, fwd, bwd, field_pred, coded, mv, mvfs = _unpack_meta2(
-            meta, self.field_support)
-        residual = dense.view(n, geom.blocks_per_mb, 8, 8)
-        cf = geom.chroma_format
-        xs, ys, n_cb = CHROMA_INFO[cf]
-        c_rows, c_cols = (16 >> ys) // 8, (16 >> xs) // 8
-        # field DCT interleaves chroma rows too where a chroma block
-        # column spans the MB's 16 rows (4:2:2, 4:4:4)
-        inter_c = dct_type if cf != CHROMA_420 else None
-        res = {
-            0: _tiles_from_blocks(residual[:, :4], 2, 2, dct_type),
-            1: _tiles_from_blocks(residual[:, 4:4 + n_cb], c_rows, c_cols,
-                                  inter_c),
-            2: _tiles_from_blocks(residual[:, 4 + n_cb:], c_rows, c_cols,
-                                  inter_c),
-        }
-        refs = {0: (r0y, r1y), 1: (r0u, r1u), 2: (r0v, r1v)}
-        return self._planes(res, refs, fwd, bwd, field_pred, coded, mv,
-                            mvfs, bidir, band)
-
-    def _planes(self, res, refs, fwd, bwd, field_pred, coded, mv, mvfs,
-                bidir: bool = True, band=None):
-        """Fused-kernel reconstruction of ``roll`` and ``swar`` from the
-        unpacked metadata: per component, the int16 residual in plane
-        layout, then under ``roll`` one launch for luma and one for U and V
-        together (MC, bidir average, residual add, saturation and uncoded
-        masking): K5 and K6 (or, with field support and no kernel, the
-        plain version of K2/K3's vector form).
-        Under ``swar``, one prediction launch for the picture's three
-        components (K7), or under field support one per component (K8), and
-        a plain PyTorch epilogue per component.  ``band`` as
-        :meth:`_recon_from_residual`: the kernels' output (the residual
-        planes', or the SWAR kernels' ``H``) is the band's rows."""
-        geom = self.geom
-        xs, ys, _ = CHROMA_INFO[geom.chroma_format]
-        mbh = geom.mb_height if band is None else band[1]
+        (res_y,), vy, _, _ = blocks_to_vectors(r0y, dense, meta, **kw)
+        res_c, vc, ch, cw = blocks_to_vectors(r0u, dense, meta, uv=True,
+                                              **kw)
+        if isinstance(fns, tuple):
+            luma = fns[0](r0y, r1y, res_y, *vy, h=16, w=16, bidir=bidir)
+            u, v = fns[1]((r0u, r0v), (r1u, r1v), res_c, *vc, h=ch, w=cw,
+                          bidir=bidir)
+            return luma, u, v
         mbw = geom.mb_width
-        fs = self.field_support
-        swar = self.mc_impl == "swar"
-        mode = fwd.to(torch.int32) + 2 * bwd.to(torch.int32)
-        if not swar:
-            mode = mode + 4 * coded.to(torch.int32)
-        if fs:
-            mode = mode + 8 * field_pred.to(torch.int32)
+        mbh = meta.shape[0] // mbw
+        refs0, refs1 = (r0y, r0u, r0v), (r1y, r1u, r1v)
+        tiles = ((16, 16), (ch, cw), (ch, cw))
+        if self.field_support:
+            words = [fns(r0, r1, *v, h=h, w=w, bidir=bidir, H=mbh * h)
+                     for r0, r1, v, (h, w) in zip(refs0, refs1, (vy, vc, vc),
+                                                  tiles)]
+        else:
+            words = fns(refs0, refs1, vy[:6], vc[:6], vy[6], h=ch, w=cw,
+                        bidir=bidir, H=mbh * 16)
+        coded = ((vy[6] & 4) != 0).reshape(mbh, 1, mbw, 1)
 
-        def meta(pos, mvs, H, W, h, w):
-            """Frame vectors of both directions (unit 0), then, under field
-            support, the field tuples of both directions."""
-            py, px = pos
-            out = [*mc_meta(py, px, mvs[:, 0, 0, 0], mvs[:, 0, 0, 1],
-                            H, W, h, w),
-                   *mc_meta(py, px, mvs[:, 0, 1, 0], mvs[:, 0, 1, 1],
-                            H, W, h, w), mode]
-            if fs:
-                out += [mc_field_meta(py, px, mvs[:, :, s], mvfs[:, :, s],
-                                      H, W, h, w) for s in range(2)]
-            return out
+        def epilogue(word, res, h, w):
+            # the uncoded-MB mask rides the residual: -256 saturates to 0
+            # after the clip.  The sum is int32, as the other forms': the
+            # JAX epilogue's int16 sum wraps at the residual's extremes
+            res = torch.where(coded.expand(mbh, h, mbw, w).reshape(res.shape),
+                              res, -256)
+            pred = unpack_words(word).to(torch.int32)
+            return torch.clamp(pred + res, 0, 255).to(torch.uint8)
 
-        # window-start clamps are in full-reference coordinates
-        Hr, Wr = geom.mb_height * 16, mbw * 16
-        ch, cw = 16 >> ys, 16 >> xs
-        mvc = _scale_mv(mv, geom.chroma_format)
-        pos_y, pos_c = self._band_pos(0, band), self._band_pos(1, band)
-        if swar:
-            tiles = ((16, 16), (ch, cw), (ch, cw))
-            meta_y = meta(pos_y, mv, Hr, Wr, 16, 16)
-            meta_c = meta(pos_c, mvc, Hr >> ys, Wr >> xs, ch, cw)
-            if fs:
-                words = [self._mc_fns(refs[c][0], refs[c][1], *m, h=h, w=w,
-                                      bidir=bidir, H=mbh * h)
-                         for c, (m, (h, w)) in enumerate(zip(
-                             (meta_y, meta_c, meta_c), tiles))]
-            else:
-                words = self._mc_fns(
-                    tuple(refs[c][0] for c in range(3)),
-                    tuple(refs[c][1] for c in range(3)), meta_y[:6],
-                    meta_c[:6], mode, h=ch, w=cw, bidir=bidir, H=mbh * 16)
-
-            def epilogue(c, h, w):
-                H, W = mbh * h, mbw * w
-                # the uncoded-MB mask rides the residual: -256 saturates to
-                # 0 after the clip (int16 arithmetic, as the JAX epilogue)
-                coded_px = coded.reshape(mbh, 1, mbw, 1).expand(
-                    mbh, h, mbw, w).reshape(H, W)
-                res2 = torch.where(coded_px,
-                                   _plane_from_tiles(res[c], mbh, mbw, h, w),
-                                   -256)
-                pred = unpack_words(words[c]).to(torch.int16)
-                return torch.clamp(pred + res2, 0, 255).to(torch.uint8)
-
-            return tuple(epilogue(c, h, w) for c, (h, w) in enumerate(tiles))
-        luma_fn, uv_fn = self._mc_fns
-        luma = luma_fn(
-            refs[0][0], refs[0][1], _plane_from_tiles(res[0], mbh, mbw, 16, 16),
-            *meta(pos_y, mv, Hr, Wr, 16, 16), h=16, w=16, bidir=bidir)
-        # chroma: U and V share the scaled MVs (planar, so no doubled sx)
-        u, v = uv_fn(
-            (refs[1][0], refs[2][0]), (refs[1][1], refs[2][1]),
-            (_plane_from_tiles(res[1], mbh, mbw, ch, cw),
-             _plane_from_tiles(res[2], mbh, mbw, ch, cw)),
-            *meta(pos_c, mvc, Hr >> ys, Wr >> xs, ch, cw), h=ch, w=cw,
-            bidir=bidir)
-        return luma, u, v
+        return tuple(epilogue(word, res, h, w) for word, res, (h, w)
+                     in zip(words, (res_y, *res_c), tiles))
 
     def __call__(self, tokens: PictureTokens, ref0=None, ref1=None):
         """One picture (the JAX package's ``DeviceRecon.__call__``):
@@ -342,7 +249,7 @@ class DeviceRecon:
         if self._transport is None:
             self._transport = GopRecon(self.geom, 1, self.device,
                                        self.field_support, self.mc_impl,
-                                       use_cuda_mc=self.use_cuda_mc)
+                                       self.use_kernels)
         dense, meta, _ = self._transport.upload_decode(
             self._transport.prepare([tokens], [3]), [self.device])[
                 self.device]
@@ -366,19 +273,19 @@ class GopRecon:
     ``field_support`` selects the metadata form and, with ``mc_impl``, the
     kernels (see :class:`DeviceRecon`); a frame-prediction recon refuses
     field-predicted MBs, whose second-unit vectors its 5-column metadata
-    would drop.  ``use_cuda_idct=False`` takes the chunk transport's plain
-    version (:meth:`_decode_blob_ref`, K1's plain version inside), and
-    ``use_cuda_mc`` is :class:`DeviceRecon`'s."""
+    would drop.  ``use_kernels=False`` takes the plain versions: of the
+    chunk transport (:meth:`_decode_blob_ref`) and of :class:`DeviceRecon`'s
+    MC kernels."""
 
     def __init__(self, geom: PictureGeometry, chunk: int, device,
                  field_support: bool = False, mc_impl: str | None = None,
-                 use_cuda_idct: bool = True, use_cuda_mc: bool = True):
+                 use_kernels: bool = True):
         self.geom = geom
         self.chunk = chunk
         self.device = torch.device(device)
-        self.use_cuda_idct = use_cuda_idct
+        self.use_kernels = use_kernels
         self.inner = DeviceRecon(geom, self.device, field_support, mc_impl,
-                                 use_cuda_mc)
+                                 use_kernels)
         self._cols = meta2_cols(field_support)
         # within-picture dense-grid index fits uint16 for every geometry up
         # to ~2.7K-wide video; 0xFFFF is the padding sentinel
@@ -430,10 +337,10 @@ class GopRecon:
         step flags (chunk,) uint8); ``meta`` and the flags are views of
         the blob.  A CUDA tensor takes the chunk transport kernel
         (:func:`transport_grid`); a CPU tensor, or any device under
-        ``use_cuda_idct=False``, the plain version
+        ``use_kernels=False``, the plain version
         (:meth:`_decode_blob_ref`); anything else raises."""
         dev = blob.device
-        if dev.type == "cpu" or not self.use_cuda_idct:
+        if dev.type == "cpu" or not self.use_kernels:
             return self._decode_blob_ref(blob, cap_pairs=cap_pairs,
                                          cap_k=cap_k)
         if dev.type != "cuda":
@@ -456,14 +363,12 @@ class GopRecon:
             self.chunk, self.geom.n_mb, self._cols)
         return meta, blob[o5:o5 + self.chunk]
 
-    def _decode_blob_ref(self, blob, *, cap_pairs, cap_k,
-                         transform=idct_blocks_ref):
+    def _decode_blob_ref(self, blob, *, cap_pairs, cap_k):
         """The plain version of :meth:`_decode_blob`, on any device: the
         JAX package's ops in PyTorch (row ids rebuilt by scatter-adds and
-        cumsums, the pairs expanded into a zeroed coefficient buffer, the
-        row ``transform``, the rows scattered into a zeroed grid).  The
-        transform is K1's plain version; K1 itself (``idct_blocks``) gives
-        the path the transport kernel replaced, which the smoke times."""
+        cumsums, the pairs expanded into a zeroed coefficient buffer, K1's
+        plain version on the rows, the rows scattered into a zeroed
+        grid)."""
         geom = self.geom
         dev = blob.device
         n_rows = geom.n_mb * geom.blocks_per_mb
@@ -507,7 +412,7 @@ class GopRecon:
         coeff = torch.zeros(cap_k * 64 + 1, dtype=torch.int16, device=dev)
         coeff.index_put_((pair_idx,), pair_val)
         # 2) one IDCT over every coded block of the whole chunk
-        res_rows = transform(coeff[:cap_k * 64].view(cap_k, 64))
+        res_rows = idct_blocks_ref(coeff[:cap_k * 64].view(cap_k, 64))
         # 3) place residual blocks into the per-picture dense grid
         dense = torch.zeros((span + cap_k, 64), dtype=torch.int16,
                             device=dev)

@@ -101,20 +101,19 @@ class _Sharded:
     each further distinct device."""
 
     def __init__(self, geom, devices, chunk, field_support, mc_impl,
-                 use_cuda_idct, use_cuda_mc):
+                 use_kernels):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("no devices")
         self.geom = geom
         self.transport = GopRecon(geom, chunk, self.devices[0],
-                                  field_support, mc_impl, use_cuda_idct,
-                                  use_cuda_mc)
+                                  field_support, mc_impl, use_kernels)
         self.inner = self.transport.inner
         self._recons = {self.devices[0]: self.inner}
         for d in self.devices:
             if d not in self._recons:
                 self._recons[d] = DeviceRecon(geom, d, field_support,
-                                              self.inner.mc_impl, use_cuda_mc)
+                                              self.inner.mc_impl, use_kernels)
 
 
 class RowShardedRecon(_Sharded):
@@ -123,19 +122,19 @@ class RowShardedRecon(_Sharded):
     clamps stay in whole-reference coordinates; each kernel's grid covers
     its band).  The geometry is padded to a whole number of rows per band
     as the JAX package pads it (:func:`pad_geometry_rows`), which moves the
-    clamp height with it.  ``mc_impl`` and the ``use_cuda_*`` switches as
+    clamp height with it.  ``mc_impl`` and ``use_kernels`` as
     :class:`GopRecon`."""
 
     def __init__(self, geom: PictureGeometry, devices,
                  field_support: bool = False, mc_impl: str | None = None,
-                 use_cuda_idct: bool = True, use_cuda_mc: bool = True):
+                 use_kernels: bool = True):
         n = len(devices)
         self.n_shards = n
         self.geom_in = geom
         padded = pad_geometry_rows(geom, n)
         self.mbh_local = padded.mb_height // n
         super().__init__(padded, devices, 1, field_support, mc_impl,
-                         use_cuda_idct, use_cuda_mc)
+                         use_kernels)
 
     def __call__(self, tokens: PictureTokens, ref0=None, ref1=None):
         """``tokens`` predicted forward from ``ref0`` and backward from
@@ -179,8 +178,7 @@ class StreamBatchRecon(_Sharded):
 
     def __init__(self, geom: PictureGeometry, devices,
                  field_support: bool = False, n_streams: int = 0,
-                 mc_impl: str | None = None, use_cuda_idct: bool = True,
-                 use_cuda_mc: bool = True):
+                 mc_impl: str | None = None, use_kernels: bool = True):
         n_sh = len(devices)
         self.n_streams = n_streams or n_sh
         if self.n_streams % n_sh:
@@ -188,7 +186,7 @@ class StreamBatchRecon(_Sharded):
                              f"across {n_sh} shards")
         self.s_local = self.n_streams // n_sh
         super().__init__(geom, devices, self.n_streams, field_support,
-                         mc_impl, use_cuda_idct, use_cuda_mc)
+                         mc_impl, use_kernels)
 
     def _zero_refs(self):
         g = self.geom

@@ -12,9 +12,9 @@ JAX package's ``tools/perf_gate.py``, gates 1, 2 and 3.
   of ``tests/data/bench_1080p_420_16.m2v`` from zero references: upload,
   pairs to rows, IDCT, the per-picture MC loop — with the hand kernels
   against the same step with their plain versions on the card
-  (``use_cuda_idct=False, use_cuda_mc=False``).  Host time of a step
-  ended by a synchronize (``tbench.step_ms``): the host's glue bounds the
-  step, so its device time alone would leave out what a user waits for.
+  (``use_kernels=False``).  Host time of a step ended by a synchronize
+  (``tbench.step_ms``): the host's glue bounds the step, so its device
+  time alone would leave out what a user waits for.
   The kernels' step must be at least as fast (1.0x).
 * Gate 3: the serving step — ``StreamBatchRecon.dispatch`` of 2 streams
   on the card, the first 2 pictures of the same stream as their pictures,
@@ -105,7 +105,7 @@ def chunk_steps(data: bytes, device, mc_impl: str = "mxu") -> dict:
     steps = {}
     for name, use in (("kernel", True), ("plain", False)):
         gr = GopRecon(geom, len(toks), device, field_support=field,
-                      mc_impl=mc_impl, use_cuda_idct=use, use_cuda_mc=use)
+                      mc_impl=mc_impl, use_kernels=use)
         staged = gr.prepare(toks, pcts)
         steps[name] = lambda gr=gr, staged=staged: gr.dispatch(staged)
     return steps
@@ -126,7 +126,7 @@ def serve_steps(data: bytes, device, n_streams: int = SERVE_STREAMS,
     steps = {}
     for name, use in (("kernel", True), ("plain", False)):
         sb = StreamBatchRecon(geom, [device], field, n_streams, mc_impl,
-                              use_cuda_idct=use, use_cuda_mc=use)
+                              use_kernels=use)
         staged = sb.transport.prepare(toks, [3] * n_streams)
         steps[name] = lambda sb=sb, staged=staged: sb.dispatch(
             staged, is_b, is_ip)
