@@ -35,7 +35,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    metadata rows in, luma and U+V, on a 1080p 4:2:0 frame picture and a
    1080-line 4:2:2 field one), equal to its plain version and timed beside
    the vector form's kernel and beside the glue and that kernel together;
-   then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
+   its grouped form, the decoder's one MC launch a group of pictures
+   (:func:`check_blocks_group`: 16 pictures of each of those two kinds,
+   and the first alone), equal to its plain version and timed beside the
+   one-picture launches it replaces; then K2 and K3 on a plane of one MB (:func:`one_mb_times`), K2 on a
    plane of uncoded MBs (:func:`uncoded_time`), K2, K7 and K8 on a plane of
    MBs that all predict in both directions (:func:`mode7_times`) and a
    kernel that does nothing (:func:`empty_times`);
@@ -44,11 +47,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decoder is built), each with the launch counts reset just before and
    read just after its decode.  The 16-picture 1080p 4:2:0 IBBP stream
    (``tests/data/bench_1080p_420_16.m2v``) under ``mxu`` (the chunk
-   transport, K2, K3 in their blocks form, and no launch of their vector
-   form), ``roll`` (the transport, K5, K6) and ``swar`` (the transport,
+   transport, K2, K3 in their grouped blocks form, and no launch of their
+   vector form nor of the one-picture blocks form), ``roll`` (the transport, K5, K6) and ``swar`` (the transport,
    K7); the interlaced 1080-line 4:2:2 stream with field motion and field
    DCT (``tests/data/interlaced_1080_422_16.m2v``) under ``mxu`` (the
-   transport, K4's blocks form) and ``swar`` (the transport, K8).  Each path must launch its kernels exactly as often
+   transport, K4's grouped blocks form) and ``swar`` (the transport, K8).  Each path must launch its kernels exactly as often
    as :data:`PATHS` says and no MC kernel of another implementation, and
    each YUV sha256 must equal the one recorded from the JAX package (the
    ``.json`` beside each stream); then warm decode frames/s of each.
@@ -154,28 +157,34 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(REPO, "tiny_mp2v_dec_tpu_torch")
 DATA = os.path.join(REPO, "tests", "data")
+# MC launches under mxu (the grouped blocks form of K2/K3 or K4, one a
+# group of pictures that read no output of one another: ops/recon.py
+# mc_groups) of the 16-picture fixtures, whose decode order is I P B B P B
+# B ...: by gop_chunk, {I} {P} {B B P} x4 {B B} in one chunk of 16; 3 + 2 +
+# 2 + 2 in four chunks of 4; a picture a chunk at gop_chunk=0
+MXU_GROUPS = {16: 7, 4: 9, 0: 16}
 # end-to-end paths: (fixture, MP2V_MC_IMPL) -> the launches of its decode
 # (one chunk of 16 pictures: the chunk transport once, its three launches
-# counted; the two-plane MC kernels — under mxu the blocks form of K2/K3 or
-# K4 — and K7's picture form once per picture, K8 once per component per
-# picture; no launch of K1 alone)
+# counted; under mxu the grouped blocks form of K2/K3 or K4 once a group;
+# the two-plane MC kernels of roll and K7's picture form once per picture,
+# K8 once per component per picture; no launch of K1 alone)
 PATHS = {
     ("bench_1080p_420_16", "mxu"): {
-        "transport": 3, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
+        "transport": 3, "mc_recon_blocks_group": MXU_GROUPS[16]},
     ("interlaced_1080_422_16", "mxu"): {
-        "transport": 3, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
+        "transport": 3, "mc_field_blocks_group": MXU_GROUPS[16]},
     ("bench_1080p_420_16", "roll"): {
         "transport": 3, "mc_roll_luma": 16, "mc_roll_uv": 16},
     ("bench_1080p_420_16", "swar"): {"transport": 3, "mc_swar_yuv": 16},
     ("interlaced_1080_422_16", "swar"): {"transport": 3, "mc_swar_field": 48},
 }
-# pipelined paths, under mxu at gop_chunk=4: the same launches but the
-# transport's, once for each of the four chunks
+# pipelined paths, under mxu at gop_chunk=4: the transport once for each
+# of the four chunks, the MC kernels once a group of each chunk
 PIPELINED = {
     "bench_1080p_420_16": {
-        "transport": 12, "mc_recon_blocks_luma": 16, "mc_recon_blocks_uv": 16},
+        "transport": 12, "mc_recon_blocks_group": MXU_GROUPS[4]},
     "interlaced_1080_422_16": {
-        "transport": 12, "mc_field_blocks_luma": 16, "mc_field_blocks_uv": 16},
+        "transport": 12, "mc_field_blocks_group": MXU_GROUPS[4]},
 }
 # (pictures_pool_size, output_host) of each pipelined path's two decodes
 DELIVERY = ((0, False), (1, True))
@@ -189,21 +198,22 @@ MULTI_CHUNK = {name: {k: n * REPEAT for k, n in PATHS[name, "mxu"].items()}
 # under each MP2V_MC_IMPL
 NATURAL = "natural_576_420_16"
 NATURAL_CHUNKS = (0, 4, 16)
-# the launches of the bench's hash decode: the 64-picture stream under mxu
-# at gop_chunk=16, four chunks
-BENCH_LAUNCHES = {k: 4 * n for k, n in PATHS["bench_1080p_420_16",
-                                              "mxu"].items()}
+# the launches of the bench's hash decode: the 64-picture stream (one GOP,
+# I P B B P B B ... in decode order) under mxu at gop_chunk=16, four
+# chunks: 7 MC groups in the first, 6 in each other ({P} {B B P} x5; {B B
+# P} x5 {B}; {B P} {B B P} x4 {B B})
+BENCH_LAUNCHES = {"transport": 12, "mc_recon_blocks_group": 25}
 # phase 7 (a): decode_batch of these streams (three geometry groups; two
 # 1080p 4:2:0 streams of unequal length; the interlaced stream on K4);
 # MP2V_MC_IMPL -> (streams, launches on one card: the transport once a step
-# (three launches), the longest stream of a group setting its steps, the MC
-# kernels once a stream a step, no-op padding included)
+# (three launches), the longest stream of a group setting its steps; under
+# mxu the MC kernels once a step, all of the step's streams in one launch;
+# under roll and swar once a stream a step, no-op padding included)
 BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
          NATURAL)
 BATCH_CASES = {
-    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_luma": 48,
-                    "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
-                    "mc_field_blocks_uv": 16}),
+    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_group": 32,
+                    "mc_field_blocks_group": 16}),
     "roll": (BATCH[:2], {"transport": 48, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
     "swar": (BATCH[:2], {"transport": 48, "mc_swar_yuv": 32}),
@@ -212,22 +222,21 @@ BATCH_CASES = {
 # 4:2:0 stream in one batch (BASELINE.json's "16x 1080p"), under mxu
 SERVE = "bench_1080p_420_16"
 SERVE_COPIES = 16
-SERVE_LAUNCHES = {"transport": 48, "mc_recon_blocks_luma": 16 * SERVE_COPIES,
-                  "mc_recon_blocks_uv": 16 * SERVE_COPIES}
+SERVE_LAUNCHES = {"transport": 48, "mc_recon_blocks_group": 16}
 # phase 7 (c): mesh="rows" in this many bands (68 MB rows: 17 a band);
 # (fixture, MP2V_MC_IMPL) -> launches: the transport once a picture (three
 # launches), the MC kernels
-# once a band a picture (the interlaced stream's I picture, which has no
-# field MB, on the frame kernels)
+# once a band a picture (under mxu a group of one, luma and U+V in one
+# launch; the interlaced stream's I picture, which has no field MB, on the
+# frame kernels)
 ROW_BANDS = 4
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "transport": 48, "mc_recon_blocks_luma": 64,
-        "mc_recon_blocks_uv": 64},
+        "transport": 48, "mc_recon_blocks_group": 64},
     ("bench_1080p_420_16", "swar"): {"transport": 48, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "transport": 48, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
-        "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
+        "transport": 48, "mc_recon_blocks_group": 4,
+        "mc_field_blocks_group": 60},
     ("interlaced_1080_422_16", "swar"): {
         "transport": 48, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }
@@ -248,13 +257,18 @@ RANK_TIMEOUT = 240
 # seconds the bench (run short) and each CLI decode may take
 ENTRY_TIMEOUT = 300
 # the vector form of K2/K3/K4, which no decode path launches since the
-# blocks form took its place under mxu
+# blocks form took its place under mxu, and the blocks form's one-picture
+# entries, which none launches since the grouped form took theirs
 VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
                "mc_field_uv")
-# every MC kernel's counter: the paths', K7's one-component form and the
-# vector form of K2/K3/K4, which no path launches
+ONE_PICTURE = ("mc_recon_blocks_luma", "mc_recon_blocks_uv",
+               "mc_field_blocks_luma", "mc_field_blocks_uv")
+# every MC kernel's counter: the paths', K7's one-component form, the
+# vector form of K2/K3/K4 and the blocks form's one-picture entries, which
+# no path launches
 MC_KERNELS = ({k for counts in PATHS.values() for k in counts}
-              | {"mc_swar", *VECTOR_FORM}) - {"transport", "idct8x8"}
+              | {"mc_swar", *VECTOR_FORM, *ONE_PICTURE}) - {"transport",
+                                                            "idct8x8"}
 TIMED_RUNS = 20
 # the card's peaks for the bound (H100 SXM data sheet): HBM bytes and
 # non-tensor arithmetic per ms; the data sheet lists no rate for integer
@@ -805,6 +819,89 @@ def check_blocks(torch, np, rng) -> dict:
     return out
 
 
+def check_blocks_group(torch, np, rng) -> dict:
+    """The grouped blocks form, which the decoder's mxu path launches, on a
+    chunk of 16 pictures of each of :data:`BLOCK_PICTURES` — the two
+    references shared, as a group's pictures share them, and each picture
+    bidir or forward-only as the offline chunk's decode order (I P B B P B
+    B ...) makes it — and on its first picture alone: each ``torch.equal``
+    to the plain version (the one-picture plain versions, picture by
+    picture).  Device ms of the group's one launch (``ms``), of the 32
+    one-picture launches it replaces (``replaced_ms``), of the group of
+    one and of the two launches it replaces (``one_ms``,
+    ``one_replaced_ms``), of the plain version, and the bound (the bytes
+    the pictures' modes need, each picture's metadata rows once).  Returns
+    the two entry points' records."""
+    from tiny_mp2v_dec_tpu_torch.ops import mc_fused
+    out = {}
+    for label, cf, field in BLOCK_PICTURES:
+        r0, r1, _, _ = blocks_inputs(torch, np, rng, cf, field)
+        pictures = []
+        for k in range(16):
+            _, _, dense, meta = blocks_inputs(torch, np, rng, cf, field)
+            pictures.append((r0, r1, dense, meta, k > 1 and k % 3 != 1))
+        name = f"mc_{'field' if field else 'recon'}_blocks_group"
+        kw = dict(chroma_format=cf, mbw=BLOCK_MBW)
+
+        def kern(group):
+            return mc_fused.fused_mc_recon_blocks_group(group, **kw)
+
+        def plain(group):
+            return mc_fused.fused_mc_recon_blocks_group_ref(group, **kw)
+
+        def replaced(group):
+            return [(mc_fused.fused_mc_recon_blocks(
+                        a0[0], a1[0], d, m, bidir=b, **kw),
+                     *mc_fused.fused_mc_recon_uv_blocks(
+                         a0[1:], a1[1:], d, m, bidir=b, **kw))
+                    for a0, a1, d, m, b in group]
+
+        rec, errs = {}, []
+        for size in (16, 1):
+            group = pictures[:size]
+            got, want = kern(group), plain(group)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(torch, g, w) for gp, wp in zip(got, want)
+                      for g, w in zip(gp, wp))
+            if err or not all(torch.equal(g, w) for gp, wp in zip(got, want)
+                              for g, w in zip(gp, wp)):
+                fail(f"{name} {label} group of {size} differs from its "
+                     f"plain version (max abs err {err})")
+            errs.append(err)
+            ms = cuda_ms(torch, lambda: kern(group))
+            rep_ms = cuda_ms(torch, lambda: replaced(group))
+            if size == 1:
+                rec.update(one_ms=ms, one_replaced_ms=rep_ms)
+                continue
+            read = 0
+            for a0, _, dense, meta, bidir in group:
+                for uv in (False, True):
+                    ref = a0[1] if uv else a0[0]
+                    _, vecs, h, w = mc_fused.blocks_to_vectors(
+                        ref, dense, meta, cf, BLOCK_MBW, uv=uv)
+                    # a forward-only picture reads no backward window
+                    mode = vecs[6] if bidir else vecs[6] & ~2
+                    flat = [*vecs[:6], mode, *(vecs[7:] if field else ())]
+                    read += mc_read_bytes(
+                        torch, flat, *ref.shape, h, w,
+                        n_planes=2 if uv else 1, field=field, recon=True,
+                        meta_bytes=0 if uv else 2 * meta.numel())
+            rec = {"ms": ms, "replaced_ms": rep_ms,
+                   "plain_ms": cuda_ms(torch, lambda: plain(group), runs=3),
+                   "pictures": size,
+                   **bound((), [p for gp in got for p in gp],
+                           OPS_PER_OUT["recon"], read)}
+        rec["max_abs_err"] = max(errs)
+        print(f"{name} {label}: groups of 16 and 1 equal to plain; 16 "
+              f"pictures in one launch {rec['ms']:.4f} ms, in 32 one-picture "
+              f"launches {rec['replaced_ms']:.4f} ms; one picture in one "
+              f"launch {rec['one_ms']:.4f} ms, in two "
+              f"{rec['one_replaced_ms']:.4f} ms; plain {rec['plain_ms']:.2f} "
+              f"ms; bound {rec['bound_ms']:.5f} ms")
+        out[name] = rec
+    return out
+
+
 def one_mb_times(torch, np, rng) -> dict:
     """K2 and K3 on a plane that holds one MB (16x16 luma; 8x8 U and V),
     coded and bidirectional, checked against the plain version like every
@@ -1108,13 +1205,14 @@ def decode_path(torch, _build, MP2VDecoder, DecoderConfig, name, impl,
 def natural_launches(impl: str, gop_chunk: int) -> dict:
     """The launches of a decode of the natural stream's 16 frame-predicted
     pictures: the transport once a chunk (a picture is a chunk at
-    ``gop_chunk=0``; three launches),
-    the MC kernels of ``impl`` once a picture."""
-    mc = {"mxu": ("mc_recon_blocks_luma", "mc_recon_blocks_uv"),
-          "roll": ("mc_roll_luma", "mc_roll_uv"),
-          "swar": ("mc_swar_yuv",)}[impl]
-    return {"transport": 3 * (16 // gop_chunk if gop_chunk else 16),
-            **{k: 16 for k in mc}}
+    ``gop_chunk=0``; three launches), the MC kernels of ``impl``: under
+    mxu once a group (:data:`MXU_GROUPS`), else once a picture."""
+    if impl == "mxu":
+        mc = {"mc_recon_blocks_group": MXU_GROUPS[gop_chunk]}
+    else:
+        mc = {k: 16 for k in {"roll": ("mc_roll_luma", "mc_roll_uv"),
+                              "swar": ("mc_swar_yuv",)}[impl]}
+    return {"transport": 3 * (16 // gop_chunk if gop_chunk else 16), **mc}
 
 
 def entry_point(args: list, label: str) -> subprocess.CompletedProcess:
@@ -1783,6 +1881,7 @@ def main() -> int:
                                      field=True, impl="swar"),
         **check_rows(torch),
         **check_blocks(torch, np, rng),
+        **check_blocks_group(torch, np, rng),
     }
     one_mb = one_mb_times(torch, np, rng)
     uncoded = uncoded_time(torch, np, rng)
@@ -1857,6 +1956,8 @@ def main() -> int:
         "mc_recon_blocks_uv": ("mc_recon.cu", f"{mcp}:492"),
         "mc_field_blocks_luma": ("mc_recon.cu", f"{mcp}:353"),
         "mc_field_blocks_uv": ("mc_recon.cu", f"{mcp}:353"),
+        "mc_recon_blocks_group": ("mc_recon.cu", f"{mcp}:448"),
+        "mc_field_blocks_group": ("mc_recon.cu", f"{mcp}:353"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": csrc + sources[name][0],

@@ -143,3 +143,34 @@ def kernel_model(refs0, refs1, dense, meta, cf, mbw, mb0=0, bidir=True,
                     out[rows, cols + k] = val[:, k]
         outs.append(out)
     return outs
+
+
+def group_model(pictures, cf, mbw, mb0=0):
+    """What the grouped blocks form's grid computes (``mc_group_kernel``):
+    picture after picture, its luma block range, then its U+V range, each
+    the one-component launch's whole blocks; a block's picture and
+    component from one division of its index; each range then what
+    :func:`kernel_model` computes at the picture's own ``bidir``.  ``pictures``: ``(refs0, refs1, dense, meta, bidir)`` with
+    (Y, U, V) reference triples, numpy; returns ``(y, u, v)`` a
+    picture."""
+    n = pictures[0][3].shape[0]
+    xs, ys, _ = CHROMA_INFO[cf]
+
+    def blocks(th, tw, planes):
+        per_group = 2 if tw == 8 else 1
+        threads = -(-n // per_group) * th * (tw // 8) * planes * per_group
+        return -(-threads // 256)
+
+    luma, uv = blocks(16, 16, 1), blocks(16 >> ys, 16 >> xs, 2)
+    ranges = {}
+    for b in range(len(pictures) * (luma + uv)):
+        k, r = divmod(b, luma + uv)
+        ranges.setdefault((k, r >= luma), []).append(r - luma * (r >= luma))
+    out = []
+    for k, (refs0, refs1, dense, meta, bidir) in enumerate(pictures):
+        assert ranges[k, False] == list(range(luma))
+        assert ranges[k, True] == list(range(uv))
+        rest = (dense, meta, cf, mbw, mb0, bidir)
+        out.append((*kernel_model(refs0[:1], refs1[:1], *rest),
+                    *kernel_model(refs0[1:], refs1[1:], *rest, uv=True)))
+    return out

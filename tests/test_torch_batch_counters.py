@@ -5,7 +5,9 @@
 ``batch_tokenize``), counts its steps and no-op pictures, and reckons the
 bytes its output stack and reference picks write from the step flags and
 plane shapes; the chunk and latency paths keep their counters, the new
-ones at 0.  Imports neither ``jax`` nor ``tiny_mp2v_dec_tpu``."""
+ones at 0.  Every path counts its MC launches: one a step of the batch, a
+picture live, a group of pictures that read no output of one another in a
+chunk.  Imports neither ``jax`` nor ``tiny_mp2v_dec_tpu``."""
 import time
 
 import pytest
@@ -24,6 +26,8 @@ KEPT = {"pictures", "tokenize_s", "fill_s", "device_s", "output_s",
         "bad_slices", "slot_wait_s", "fill_wait_s", "chunk_wait_s"}
 BATCH = {"batch_tokenize_s", "batch_steps", "noop_pictures",
          "batch_copy_bytes"}
+# the counters of every path since
+EVERY = {"mc_launches"}
 
 
 def _decoder(**kw):
@@ -98,6 +102,8 @@ def test_steps_noop_pictures_and_copy_bytes(lengths, mesh_devices):
     steps = max(map(len, types))
     s = dec.stats
     assert s["batch_steps"] == steps
+    # one MC launch a shard a step
+    assert s["mc_launches"] == steps * (mesh_devices or 1)
     assert s["noop_pictures"] == n_streams * steps - sum(map(len, types))
     want = 0
     for step in range(steps):
@@ -115,7 +121,58 @@ def test_chunk_and_latency_counters_as_before(gop_chunk):
     dec = _decoder(gop_chunk=gop_chunk)
     frames = dec.decode(data)
     s = dec.stats
-    assert set(s) == KEPT | BATCH
+    assert set(s) == KEPT | BATCH | EVERY
     assert all(s[k] == 0 for k in BATCH)
     assert s["pictures"] == len(frames) == 16
+    # live, a launch a picture; in a chunk, a launch for each I/P picture
+    # (which closes its group) and one for B pictures the chunk ends on
+    types = generate.picture_types(spec.channels(batch_config(None))[0])
+    size = gop_chunk or 1
+    chunks = [types[k:k + size] for k in range(0, 16, size)]
+    assert s["mc_launches"] == sum(
+        sum(t != H.PCT_B for t in c) + (c[-1] == H.PCT_B) for c in chunks)
     assert s["tokenize_s"] > 0 and s["fill_s"] > 0 and s["device_s"] > 0
+
+
+# every path of the decoder, by its configuration
+SEAM_PATHS = {"chunk": dict(gop_chunk=4), "live": dict(gop_chunk=0),
+              "rows": dict(mesh="rows", mesh_devices=2), "batch": {}}
+
+
+def _decode_bytes(path):
+    streams = batch_streams()
+    dec = _decoder(**SEAM_PATHS[path])
+    if path == "batch":
+        frames = [f for stream in dec.decode_batch(streams) for f in stream]
+    else:
+        frames = dec.decode(streams[0])
+    return dec, [f.tobytes() for f in frames]
+
+
+@pytest.mark.parametrize("path", sorted(SEAM_PATHS))
+def test_every_picture_passes_recon_from_residual(path, monkeypatch):
+    """``DeviceRecon._recon_from_residual`` is the seam through which each
+    picture (each band in ``mesh="rows"``) is reconstructed, grouped or
+    not: a recon that hands back its newer reference there leaves the
+    decode's state unchanged, and every picture's call reaches it."""
+    from tiny_mp2v_dec_tpu_torch.ops.recon import DeviceRecon
+    _, sound = _decode_bytes(path)
+    orig = DeviceRecon._recon_from_residual
+    calls = [0]
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return orig(self, *a, **kw)
+    monkeypatch.setattr(DeviceRecon, "_recon_from_residual", counted)
+    dec, again = _decode_bytes(path)
+    assert again == sound
+    pictures = (dec.stats["batch_steps"] * 8 if path == "batch"
+                else dec.stats["pictures"] * (2 if path == "rows" else 1))
+    assert calls[0] == pictures
+
+    def unchanged(self, dense, meta, r0y, r0u, r0v, r1y, r1u, r1v,
+                  bidir=True, band=None):
+        return r1y, r1u, r1v
+    monkeypatch.setattr(DeviceRecon, "_recon_from_residual", unchanged)
+    _, faulty = _decode_bytes(path)
+    assert len(faulty) == len(sound) and faulty != sound

@@ -12,8 +12,9 @@ forms) and on synthetic 1080- and 576-line chunks of every chroma format
 (pictures with no coded block, full rows at int16's ends);
 K9 and K10 at the MC profiler's shapes, edge starts, every ``sx & 3``
 at every phase, on the tightest plane and at 1088x1904; the blocks form
-of K2/K3/K4, which the decoder's mxu path launches, on 1080-line pictures
-of every chroma format, whole and as a band), both 1080-line
+of K2/K3/K4 on 1080-line pictures of every chroma format, whole and as a
+band, and its grouped form, which the decoder's mxu path launches, on
+groups of 1 and 16 pictures), both 1080-line
 fixtures decoded through the kernels of each ``MP2V_MC_IMPL``, through
 the chunk pipeline at ``gop_chunk=4`` and four times over at
 ``gop_chunk=16``, the MC profiler's parity run and the kernel gate; and
@@ -477,6 +478,36 @@ def test_blocks_kernels_match_plain(cf, field, bidir, band):
             assert torch.equal(g, w[row0 * th:(row0 + rows) * th])
 
 
+# the grouped form's chunks: (chroma format, field rows) of the two
+# 1080-line streams, and the group sizes
+GROUP_PICTURES = [(1, False), (2, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 16])
+@pytest.mark.parametrize("cf,field", GROUP_PICTURES)
+def test_group_kernel_matches_plain(cf, field, size):
+    """The grouped blocks form on 1080-line pictures at 4:2:0 frame and
+    4:2:2 field rows, groups of 1 and 16 pictures sharing two references
+    and mixing bidir and forward-only pictures as a chunk's decode order
+    does: one launch, ``torch.equal`` picture for picture to its plain
+    version."""
+    dev = _require_cuda()
+    refs0, refs1, _, _ = _blocks_inputs(dev, 60 + cf, cf, field)
+    pictures = []
+    for k in range(size):
+        _, _, dense, meta = _blocks_inputs(dev, 70 + 16 * cf + k, cf, field)
+        pictures.append((refs0, refs1, dense, meta, k > 1 and k % 3 != 1))
+    kw = dict(chroma_format=cf, mbw=120)
+    before = dict(_build.LAUNCHES)
+    got = mc_fused.fused_mc_recon_blocks_group(pictures, **kw)
+    assert _launched(before) == {
+        f"mc_{'field' if field else 'recon'}_blocks_group": 1}
+    want = mc_fused.fused_mc_recon_blocks_group_ref(pictures, **kw)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert all(torch.equal(a, b) for a, b in zip(g, w)), f"picture {k}"
+
+
 @pytest.mark.cuda
 def test_blocks_kernels_refuse_misaligned_grid():
     """The blocks form loads a block row as one 16-byte vector: a grid two
@@ -493,13 +524,20 @@ def test_blocks_kernels_refuse_misaligned_grid():
     assert dict(_build.LAUNCHES) == before
 
 
-# the decoder's mxu path: the blocks form of K2/K3 (frame metadata rows)
-# or of K4 (field rows), once each a picture
-MXU_FRAME = ("mc_recon_blocks_luma", "mc_recon_blocks_uv")
-MXU_FIELD = ("mc_field_blocks_luma", "mc_field_blocks_uv")
-# the vector form of K2/K3/K4, which the decoder's path no longer launches
+# the decoder's mxu path: the grouped blocks form of K2/K3 (frame metadata
+# rows) or of K4 (field rows), once a group of pictures that read no output
+# of one another (ops/recon.py mc_groups)
+MXU_FRAME = ("mc_recon_blocks_group",)
+MXU_FIELD = ("mc_field_blocks_group",)
+# its launches in a decode of a 16-picture fixture (decode order I P B B P
+# B B ...) by gop_chunk: {I} {P} {B B P} x4 {B B} in a chunk of 16, 3 + 2 +
+# 2 + 2 in four chunks of 4, a picture a chunk at 0
+MXU_GROUPS = {16: 7, 4: 9, 0: 16}
+# the vector form of K2/K3/K4 and the blocks form's one-picture entries,
+# which the decoder's path no longer launches
 VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
-               "mc_field_uv")
+               "mc_field_uv", "mc_recon_blocks_luma", "mc_recon_blocks_uv",
+               "mc_field_blocks_luma", "mc_field_blocks_uv")
 
 
 @pytest.mark.cuda
@@ -510,8 +548,8 @@ VECTOR_FORM = ("mc_recon_luma", "mc_recon_uv", "mc_field_luma",
 def test_decode_fixture_through_kernels(name, kernels):
     """Each 1080-line fixture decodes to its JAX hash through the chunk
     transport once (its three launches; no launch of K1 alone) and the
-    blocks form of its MC kernels twice a picture (luma, U+V), and no
-    vector-form launch."""
+    grouped blocks form of its MC kernels once a group (seven), and no
+    launch of the vector form or of the one-picture blocks form."""
     _require_cuda()
     with open(os.path.join(DATA, name + ".m2v"), "rb") as f:
         data = f.read()
@@ -528,7 +566,7 @@ def test_decode_fixture_through_kernels(name, kernels):
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
               for k in kernels + VECTOR_FORM + ("idct8x8",)}
     assert counts == {"transport": TRANSPORT_LAUNCHES,
-                      **{k: 16 for k in kernels[1:]},
+                      **{k: MXU_GROUPS[16] for k in kernels[1:]},
                       **{k: 0 for k in VECTOR_FORM + ("idct8x8",)}}
 
 
@@ -541,8 +579,8 @@ def test_decode_fixture_through_kernels(name, kernels):
 def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
     """``gop_chunk=4``: the fixture's four chunks through the fill and
     dispatch threads, from pinned staging slots, to the same JAX hash,
-    with the chunk transport once a chunk and each MC kernel once a
-    picture; with host
+    with the chunk transport once a chunk and the MC kernel once a group
+    of each chunk; with host
     output, each chunk's frames read from the pinned copy started on the
     dispatch thread."""
     _require_cuda()
@@ -561,7 +599,7 @@ def test_decode_fixture_through_pipeline(name, kernels, pool, output_host):
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
               for k in ("transport", "idct8x8") + kernels}
     assert counts == {"transport": 4 * TRANSPORT_LAUNCHES, "idct8x8": 0,
-                      **{k: 16 for k in kernels}}
+                      **{k: MXU_GROUPS[4] for k in kernels}}
     recon, = dec._recons.values()
     slots = [s for shape in recon._stage.values() for s in shape if s]
     assert 0 < len(slots) <= 3 * len(recon._stage)
@@ -599,7 +637,7 @@ def test_decode_fixture_over_four_chunks(name, kernels):
     counts = {k: _build.LAUNCHES[k] - before.get(k, 0)
               for k in ("transport", "idct8x8") + kernels}
     assert counts == {"transport": 4 * TRANSPORT_LAUNCHES, "idct8x8": 0,
-                      **{k: 64 for k in kernels}}
+                      **{k: 4 * MXU_GROUPS[16] for k in kernels}}
     assert len(dec._spare_tokens) <= 32
 
 
@@ -617,7 +655,8 @@ def test_decode_natural_content(monkeypatch, impl, gop_chunk):
     ``tests/natural_m2v.py``'s motion search) through each MC
     implementation at each chunk size, to the JAX package's hash: the
     chunk transport once a chunk (a picture at ``gop_chunk=0``), the
-    implementation's MC kernels once a picture and no other kernel."""
+    implementation's MC kernels once a picture (under mxu once a group)
+    and no other kernel."""
     _require_cuda()
     monkeypatch.setenv("MP2V_MC_IMPL", impl)
     data, want = fixtures.load("natural_576_420_16")
@@ -630,8 +669,9 @@ def test_decode_natural_content(monkeypatch, impl, gop_chunk):
               if n != before.get(k, 0)}
     assert fixtures.check_frames(frames, want) == want["yuv_sha256"]
     chunks = 16 // gop_chunk if gop_chunk else 16
+    mc = MXU_GROUPS[gop_chunk] if impl == "mxu" else 16
     assert counts == {"transport": chunks * TRANSPORT_LAUNCHES,
-                      **{k: 16 for k in FRAME_MC[impl]}}
+                      **{k: mc for k in FRAME_MC[impl]}}
 
 
 @pytest.mark.cuda
@@ -1018,12 +1058,12 @@ BATCH = ("bench_1080p_420_16", "bench_1080p_420_8", "interlaced_1080_422_16",
          "natural_576_420_16")
 # MP2V_MC_IMPL -> (streams, launches of their decode_batch on one card: the
 # chunk transport once a step (three launches), the longest stream of each
-# group setting its steps; the MC kernels once a stream a step, padding
-# included)
+# group setting its steps; under mxu the MC kernels once a step, every
+# stream of the step in one launch; under roll and swar once a stream a
+# step, padding included)
 BATCH_CASES = {
-    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_luma": 48,
-                    "mc_recon_blocks_uv": 48, "mc_field_blocks_luma": 16,
-                    "mc_field_blocks_uv": 16}),
+    "mxu": (BATCH, {"transport": 144, "mc_recon_blocks_group": 32,
+                    "mc_field_blocks_group": 16}),
     "roll": (BATCH[:2], {"transport": 48, "mc_roll_luma": 32,
                          "mc_roll_uv": 32}),
     "swar": (BATCH[:2], {"transport": 48, "mc_swar_yuv": 32}),
@@ -1055,16 +1095,15 @@ def test_decode_batch_fixtures(monkeypatch, impl):
 
 # (fixture, MP2V_MC_IMPL) -> launches of its decode in 4 bands on one card:
 # the chunk transport once a picture (three launches), the MC kernels once
-# a band a picture (the interlaced stream's I picture, which has no field
-# MB, on the frame kernels)
+# a band a picture (under mxu luma and U+V in one launch; the interlaced
+# stream's I picture, which has no field MB, on the frame kernels)
 ROWS = {
     ("bench_1080p_420_16", "mxu"): {
-        "transport": 48, "mc_recon_blocks_luma": 64,
-        "mc_recon_blocks_uv": 64},
+        "transport": 48, "mc_recon_blocks_group": 64},
     ("bench_1080p_420_16", "swar"): {"transport": 48, "mc_swar_yuv": 64},
     ("interlaced_1080_422_16", "mxu"): {
-        "transport": 48, "mc_recon_blocks_luma": 4, "mc_recon_blocks_uv": 4,
-        "mc_field_blocks_luma": 60, "mc_field_blocks_uv": 60},
+        "transport": 48, "mc_recon_blocks_group": 4,
+        "mc_field_blocks_group": 60},
     ("interlaced_1080_422_16", "swar"): {
         "transport": 48, "mc_swar_yuv": 4, "mc_swar_field": 180},
 }

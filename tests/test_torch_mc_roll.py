@@ -111,8 +111,7 @@ def test_mc_impl_rules(monkeypatch):
         resolve_mc_impl("pallas", False)
     explicit = DeviceRecon(geom, "cpu", field_support=True, mc_impl="roll")
     assert explicit.mc_impl == "roll"
-    assert explicit._mc_fns == (mc_fused.fused_mc_recon_blocks_ref,
-                                mc_fused.fused_mc_recon_uv_blocks_ref)
+    assert explicit._mc_fns is mc_fused.fused_mc_recon_blocks_group_ref
     with pytest.raises(ValueError, match="roll"):
         DeviceRecon(geom, "meta", field_support=True, mc_impl="roll")
 

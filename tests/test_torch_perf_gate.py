@@ -143,16 +143,14 @@ def test_plain_switch_takes_the_plain_functions():
     plain = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="swar",
                                use_kernels=False)
     assert plain._mc_fns is mc_fused.fused_mc_pred_swar_field_ref
-    # mxu takes the blocks form of K2/K3/K4, frame or field by the rows
+    # mxu takes the grouped blocks form of K2/K3/K4, frame or field by the
+    # rows
     kern = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="mxu")
-    assert kern._mc_fns == (mc_fused.fused_mc_recon_blocks,
-                            mc_fused.fused_mc_recon_uv_blocks)
+    assert kern._mc_fns is mc_fused.fused_mc_recon_blocks_group
     plain = trecon.DeviceRecon(g, "cpu", mc_impl="mxu", use_kernels=False)
-    assert plain._mc_fns == (mc_fused.fused_mc_recon_blocks_ref,
-                             mc_fused.fused_mc_recon_uv_blocks_ref)
+    assert plain._mc_fns is mc_fused.fused_mc_recon_blocks_group_ref
     # an explicit roll with field support has no kernel: the blocks form's
     # plain version on the CPU
     roll = trecon.DeviceRecon(g, "cpu", field_support=True, mc_impl="roll")
-    assert not roll.use_kernels and roll._mc_fns == (
-        mc_fused.fused_mc_recon_blocks_ref,
-        mc_fused.fused_mc_recon_uv_blocks_ref)
+    assert not roll.use_kernels and (
+        roll._mc_fns is mc_fused.fused_mc_recon_blocks_group_ref)

@@ -40,6 +40,21 @@
 // MB's index in the picture (a band's), mbw, the planes' Hr and Wr (the
 // luma reference's for the luma forms, a chroma plane's for U+V), bidir and
 // the stream.
+//
+// The grouped blocks form (mp2v_mc_{recon,field}_blocks_group,
+// csrc/mc_recon.cu) takes n_pic (1 to kGroupMax) pictures of kGroupPtrs
+// pointers each, picture k's at k * kGroupPtrs:
+//
+//   0-2   ref0[3]   forward reference planes Y, U, V
+//   3-5   ref1[3]   backward reference planes
+//   6     the picture's residual block grid, as above
+//   7     its metadata rows, as above
+//   8-10  out[3]    output planes Y, U, V
+//
+// Then n_pic, cols, the chroma format, n_mb, the first MB's index, mbw, the
+// luma planes' Hr and Wr, the chroma planes' Hc and Wc, bidir (bit k:
+// picture k is bidir) and the stream.  The pictures share everything but
+// their pointers and their bidir bit.
 #pragma once
 
 #include <stdint.h>
@@ -128,6 +143,59 @@ inline const int32_t* yuv_modes_of(const void* const* ptrs) {
   return (const int32_t*)ptrs[21];
 }
 
+// The grouped blocks form's pictures, at most kGroupMax a launch, and the
+// launch's shared geometry: all of it travels by value in the kernel's
+// parameter space (about 1.6 KB of its 4 KB).
+constexpr int kGroupMax = 16;
+constexpr int kGroupPtrs = 11;
+
+struct GroupPicture {
+  const uint8_t* ref0[3];
+  const uint8_t* ref1[3];
+  const int16_t* grid;
+  const int16_t* meta;
+  uint8_t* out[3];
+  int bidir;  // 1: both directions; 0: forward only
+};
+
+struct Group {
+  GroupPicture pic[kGroupMax];
+  int luma_blocks, uv_blocks;  // each picture's blocks of either component
+  int n_mb, mb0, mbw, bpm;
+  int Hr, nw, Hc, nwc;         // luma and chroma rows and words per row
+};
+
+inline Group group_of(const void* const* ptrs, int n_pic) {
+  Group g{};
+  for (int k = 0; k < n_pic; ++k) {
+    const void* const* q = ptrs + k * kGroupPtrs;
+    GroupPicture& p = g.pic[k];
+    for (int c = 0; c < 3; ++c) {
+      p.ref0[c] = (const uint8_t*)q[c];
+      p.ref1[c] = (const uint8_t*)q[3 + c];
+      p.out[c] = (uint8_t*)q[8 + c];
+    }
+    p.grid = (const int16_t*)q[6];
+    p.meta = (const int16_t*)q[7];
+  }
+  return g;
+}
+
+// A one-component call's 8 pointers (the blocks form's layout above) as a
+// group of one: luma (c = 0) in component 0, or U and V (c = 1) in 1 and 2.
+inline Group group_of_one(const void* const* ptrs, int c) {
+  Group g{};
+  GroupPicture& p = g.pic[0];
+  for (int k = 0; k < 1 + c; ++k) {
+    p.ref0[c + k] = (const uint8_t*)ptrs[0 + k];
+    p.ref1[c + k] = (const uint8_t*)ptrs[2 + k];
+    p.out[c + k] = (uint8_t*)ptrs[6 + k];
+  }
+  p.grid = (const int16_t*)ptrs[4];
+  p.meta = (const int16_t*)ptrs[5];
+  return g;
+}
+
 }  // namespace mp2v
 
 #define MP2V_MC_ARGS                                                      \
@@ -139,3 +207,8 @@ inline const int32_t* yuv_modes_of(const void* const* ptrs) {
       int Hr, int Wr, int bidir, void *stream
 #define MP2V_MC_BLOCKS_FWD \
   ptrs, cols, cf, n_mb, mb0, mbw, Hr, Wr, bidir, stream
+#define MP2V_MC_GROUP_ARGS                                                 \
+  const void *const *ptrs, int n_pic, int cols, int cf, int n_mb, int mb0, \
+      int mbw, int Hr, int Wr, int Hc, int Wc, int bidir, void *stream
+#define MP2V_MC_GROUP_FWD \
+  ptrs, n_pic, cols, cf, n_mb, mb0, mbw, Hr, Wr, Hc, Wc, bidir, stream

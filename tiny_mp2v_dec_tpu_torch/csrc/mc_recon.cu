@@ -114,13 +114,36 @@
 //               and it reads its 16 residual bytes straight from its 8x8
 //               block's row (the field-DCT interleave where a block column
 //               spans the tile's 16 rows: luma, 4:2:2 and 4:4:4 chroma).
-//               Nothing of it is stored.  A picture's device work is then
-//               these two launches and the three copies that pack its
-//               frame, where with the glue it was 78 launches at 1080p
-//               4:2:0 and 229 at 1080-line 4:2:2 with field motion.
+//               Nothing of it is stored.
 // The blocks form reads a luma MB's 512 residual bytes contiguously, a few
 // bytes of metadata per MB instead of 28 (or 76 with field tuples) of
-// vectors, and what bounds it is unchanged: bytes, over the launch floor.
+// vectors.
+//
+// The grouped blocks form (mp2v_mc_{recon,field}_blocks_group) is the one
+// launch of the blocks form: luma and U+V of up to kGroupMax pictures of
+// one geometry, none of which reads another's output (the pictures of a
+// chunk between two I/P outputs, ops/recon.py mc_groups; the streams of a
+// decode_batch step).  Its grid is, picture after picture, the picture's
+// luma block range, then its U+V block range, each the whole blocks that
+// the segment kernel gives that component; a block finds its picture and
+// component by one division, all pictures' ranges being of one size, and
+// runs the segment body with BlockFront as a one-component launch would,
+// so each pixel comes from the same arithmetic.  The pictures' pointers
+// travel in the kernel's parameter space (__grid_constant__, read by a
+// block-uniform index; nothing is uploaded).  A forward-only picture in a
+// launch that holds a bidir one takes the forward-only body by a
+// block-uniform branch on its bidir bit (which measured faster on the field
+// form than the bidir body with the backward bit masked off; PERF.md).  The
+// one-picture entries mp2v_mc_*_blocks_{luma,uv} are groups of one with
+// one component.  A picture's device work is then its share of one launch
+// and the three copies that pack its frame, where with the per-picture
+// glue it was 78 launches at 1080p 4:2:0 and 229 at 1080-line 4:2:2 with
+// field motion, and with a launch per component 2.  What bounds a launch is
+// still bytes, over a floor that it now pays once for the group: a 1080p
+// luma grid alone is 1,020 blocks, one wave on the 132 SMs, so a one-picture
+// launch paid the ramp, the chain of dependent loads and the tail with
+// nothing to hide them behind; a group of 3 or 8 pictures is several waves,
+// whose blocks overlap one another's load chains.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -137,10 +160,14 @@ using mp2v::Planes;
 // The block size: 8 luma MBs, 16 chroma 8x8 MBs.
 constexpr int kThreads = 256;
 
-// Blocks per SM the field forms are held to: 8 (32 registers a thread)
-// lets a 1080p luma grid, 1,020 blocks, run in one wave on the 132 SMs.
-// Left free, ptxas gives the bidir field forms 37-38 registers, six
-// blocks per SM.  The frame forms keep no minimum (0: none is set).
+// Blocks per SM the field forms are held to: 8 (32 registers a thread).
+// It was chosen for the one-picture forms, where it lets a 1080p luma
+// grid, 1,020 blocks, run in one wave on the 132 SMs.  The grouped form,
+// which the decoder launches, runs several waves whatever the limit; at 8
+// its bidir kernels spill 20-44 bytes, and 6 blocks per SM read 5-6%
+// faster on an H100 (an open question in PERF.md).  Left free, ptxas gives
+// the bidir field forms 37-38 registers, six blocks per SM.  The frame
+// forms keep no minimum (0: none is set).
 constexpr int kFieldBlocks = 8;
 
 // A direction's taps for one tile row: the a/b taps on frame row y from
@@ -269,8 +296,9 @@ struct BlockFront {
   }
 };
 
-// One thread per 8-pixel row segment; thread t of the grid is segment
-// `seg` of tile row `ty` of plane `pl` of MB i (see the note at the top).
+// One thread per 8-pixel row segment; thread t of the launch's range is
+// segment `seg` of tile row `ty` of plane `pl` of MB i (see the note at the
+// top).
 // Tiles 8 wide go in pairs of horizontally adjacent MBs, plane-major, so
 // that the threads of a plane's row cover 16 pixels: 32 bytes of residual,
 // one whole sector.  FIELD: mode bit 8 selects field prediction (K4, K8).
@@ -279,15 +307,15 @@ struct BlockFront {
 // VecFront or BlockFront, where the MB's inputs come from.
 template <int TH, int TW, int NP, bool BIDIR, bool FIELD, bool RECON,
           class Front>
-__global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
-    mc_seg_kernel(Planes p, Front in, int n_mb, int mbw, int Hr, int nw) {
+__device__ __forceinline__ void mc_seg(int t, const Planes& p,
+                                       const Front& in, int n_mb, int mbw,
+                                       int Hr, int nw) {
   constexpr int SEGS = TW / 8;       // segments per tile row
   constexpr int TPP = TH * SEGS;     // threads per plane of one MB
   constexpr int G = mbs_per_group(TW);
   constexpr int TPG = TPP * NP * G;  // threads per group
   static_assert(kThreads % TPG == 0, "a group's threads share one block");
   static_assert(RECON || NP == 1, "the prediction form takes one plane");
-  const int t = blockIdx.x * kThreads + threadIdx.x;
   const int r = t % TPG;
   const int i = (t / TPG) * G + (r / TPP) % G;
   if (i >= n_mb) return;
@@ -324,16 +352,32 @@ __global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
   *reinterpret_cast<uint2*>(out) = pred;
 }
 
+// The vector front end's kernel: one launch, one component.
+template <int TH, int TW, int NP, bool BIDIR, bool FIELD, bool RECON,
+          class Front>
+__global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
+    mc_seg_kernel(Planes p, Front in, int n_mb, int mbw, int Hr, int nw) {
+  mc_seg<TH, TW, NP, BIDIR, FIELD, RECON>(blockIdx.x * kThreads + threadIdx.x,
+                                          p, in, n_mb, mbw, Hr, nw);
+}
+
+// The blocks of the segment kernel over n_mb MBs of a (TH x TW) tile and
+// NP planes: whole groups of mbs_per_group MBs, rounded up to whole blocks.
+template <int TH, int TW, int NP>
+int seg_blocks(int n_mb) {
+  constexpr int G = mbs_per_group(TW);
+  constexpr long long TPG = TH * (TW / 8) * NP * G;  // threads per group
+  const long long groups = (n_mb + G - 1) / G;
+  return (int)((groups * TPG + kThreads - 1) / kThreads);
+}
+
 // One launch of a form of the segment kernel over n_mb MBs of mbw to a
 // row, on planes (Hr, Wr).
 template <bool FIELD, bool RECON, int TH, int TW, int NP, class Front>
 int launch(const Planes& p, const Front& in, int n_mb, int mbw, int Hr,
            int Wr, int bidir, void* stream) {
   if (n_mb > 0) {
-    constexpr int G = mbs_per_group(TW);
-    constexpr long long TPG = TH * (TW / 8) * NP * G;  // threads per group
-    const long long groups = (n_mb + G - 1) / G;
-    const int blocks = (int)((groups * TPG + kThreads - 1) / kThreads);
+    const int blocks = seg_blocks<TH, TW, NP>(n_mb);
     cudaStream_t s = (cudaStream_t)stream;
     if (bidir)
       mc_seg_kernel<TH, TW, NP, true, FIELD, RECON, Front>
@@ -376,41 +420,115 @@ int launch_tile(MP2V_MC_ARGS) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The blocks form (pointer order: csrc/mc_ptrs.cuh) at one tile.  Its
-// Planes hold the grid and the rows where the residual pair would be;
-// BlockFront reads them, the kernel body never.
-template <bool FIELD, int TH, int TW, int NP>
-int launch_blocks(const void* const* ptrs, int n_mb, int mb0, int mbw,
-                  int bpm, int Hr, int Wr, int bidir, void* stream) {
-  const BlockFront<TH, TW, NP, FIELD> in{(const int16_t*)ptrs[4],
-                                         (const int16_t*)ptrs[5], bpm, mb0,
-                                         mbw};
-  return launch<FIELD, true, TH, TW, NP>(mp2v::planes_of(ptrs), in, n_mb,
-                                         mbw, Hr, Wr, bidir, stream);
+// Block b of picture q's range of the grouped form: its luma blocks, then
+// its U+V blocks, through the segment body at the picture's bidir.
+template <bool BIDIR, bool FIELD, int TH, int TW>
+__device__ __forceinline__ void group_block(const mp2v::Group& g,
+                                            const mp2v::GroupPicture& q,
+                                            int b) {
+  if (b < g.luma_blocks) {
+    const Planes p{{q.ref0[0], q.ref0[0]}, {q.ref1[0], q.ref1[0]},
+                   {nullptr, nullptr}, {q.out[0], q.out[0]}};
+    const BlockFront<16, 16, 1, FIELD> in{q.grid, q.meta, g.bpm, g.mb0,
+                                          g.mbw};
+    mc_seg<16, 16, 1, BIDIR, FIELD, true>(b * kThreads + threadIdx.x, p, in,
+                                          g.n_mb, g.mbw, g.Hr, g.nw);
+  } else {
+    const Planes p{{q.ref0[1], q.ref0[2]}, {q.ref1[1], q.ref1[2]},
+                   {nullptr, nullptr}, {q.out[1], q.out[2]}};
+    const BlockFront<TH, TW, 2, FIELD> in{q.grid, q.meta, g.bpm, g.mb0,
+                                          g.mbw};
+    mc_seg<TH, TW, 2, BIDIR, FIELD, true>(
+        (b - g.luma_blocks) * kThreads + threadIdx.x, p, in, g.n_mb, g.mbw,
+        g.Hc, g.nwc);
+  }
 }
 
-// The blocks form's tile from the chroma format (cf: 1 4:2:0, 2 4:2:2,
-// 3 4:4:4, as headers.py): luma 16x16 (NP = 1), U and V 8x8, 16x8 or
-// 16x16.  The rows must be the form's: 5 columns for the frame form, 9 for
-// the field form.  Anything else is refused before a launch.
-template <bool FIELD, int NP>
-int launch_blocks_cf(MP2V_MC_BLOCKS_ARGS) {
-  if (cols != (FIELD ? 9 : 5) || cf < 1 || cf > 3 || mb0 < 0 || mbw <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int bpm = 4 + 2 * (cf == 1 ? 1 : cf == 2 ? 2 : 4);
-  if constexpr (NP == 1) {
-    return launch_blocks<FIELD, 16, 16, 1>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
-                                           bidir, stream);
-  } else {
-    if (cf == 1)
-      return launch_blocks<FIELD, 8, 8, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
-                                           bidir, stream);
-    if (cf == 2)
-      return launch_blocks<FIELD, 16, 8, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr,
-                                            Wr, bidir, stream);
-    return launch_blocks<FIELD, 16, 16, 2>(ptrs, n_mb, mb0, mbw, bpm, Hr, Wr,
-                                           bidir, stream);
+// The grouped blocks form (see the note at the top): block b of the grid
+// is block b % per of picture b / per, per = luma + uv blocks.  TH x TW:
+// the format's chroma tile.  BIDIR: some picture of the launch is bidir;
+// each picture then takes its own form by a block-uniform branch.
+template <bool BIDIR, bool FIELD, int TH, int TW>
+__global__ void __launch_bounds__(kThreads, FIELD ? kFieldBlocks : 0)
+    mc_group_kernel(const __grid_constant__ mp2v::Group g) {
+  const int k = blockIdx.x / (g.luma_blocks + g.uv_blocks);
+  const int b = blockIdx.x - k * (g.luma_blocks + g.uv_blocks);
+  const mp2v::GroupPicture& q = g.pic[k];
+  if (BIDIR && q.bidir)
+    group_block<true, FIELD, TH, TW>(g, q, b);
+  else
+    group_block<false, FIELD, TH, TW>(g, q, b);
+}
+
+// One launch of the grouped form at the chroma tile (TH x TW): the block
+// ranges of the components in `comps` (bit 0 luma, bit 1 U+V); `bidir`:
+// some picture is.
+template <bool FIELD, int TH, int TW>
+int launch_group(mp2v::Group& g, int n_pic, int comps, bool bidir,
+                 void* stream) {
+  g.luma_blocks = comps & 1 ? seg_blocks<16, 16, 1>(g.n_mb) : 0;
+  g.uv_blocks = comps & 2 ? seg_blocks<TH, TW, 2>(g.n_mb) : 0;
+  const long long blocks = (long long)n_pic * (g.luma_blocks + g.uv_blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0) {
+    if (bidir)
+      mc_group_kernel<true, FIELD, TH, TW>
+          <<<(int)blocks, kThreads, 0, s>>>(g);
+    else
+      mc_group_kernel<false, FIELD, TH, TW>
+          <<<(int)blocks, kThreads, 0, s>>>(g);
   }
+  return (int)cudaGetLastError();
+}
+
+// The grouped form from the chroma format (cf: 1 4:2:0, 2 4:2:2, 3 4:4:4,
+// as headers.py): U and V at 8x8, 16x8 or 16x16.  The rows must be the
+// form's: 5 columns for the frame form, 9 for the field form.  Bit k of
+// `bidir` is picture k's.  Anything else is refused before a launch.
+template <bool FIELD>
+int launch_group_cf(mp2v::Group& g, int n_pic, int comps, int cols, int cf,
+                    int bidir, void* stream) {
+  if (cols != (FIELD ? 9 : 5) || cf < 1 || cf > 3 || g.mb0 < 0 ||
+      g.mbw <= 0 || g.n_mb < 0)
+    return (int)cudaErrorInvalidValue;
+  g.bpm = 4 + 2 * (cf == 1 ? 1 : cf == 2 ? 2 : 4);
+  for (int k = 0; k < n_pic; ++k)
+    g.pic[k].bidir = (bidir >> k) & 1;
+  if (cf == 1)
+    return launch_group<FIELD, 8, 8>(g, n_pic, comps, bidir != 0, stream);
+  if (cf == 2)
+    return launch_group<FIELD, 16, 8>(g, n_pic, comps, bidir != 0, stream);
+  return launch_group<FIELD, 16, 16>(g, n_pic, comps, bidir != 0, stream);
+}
+
+// The grouped form's entry (pointer order: csrc/mc_ptrs.cuh): n_pic
+// pictures of kGroupPtrs pointers each, both components.
+template <bool FIELD>
+int blocks_group(MP2V_MC_GROUP_ARGS) {
+  if (n_pic < 1 || n_pic > mp2v::kGroupMax)
+    return (int)cudaErrorInvalidValue;
+  mp2v::Group g = mp2v::group_of(ptrs, n_pic);
+  g.n_mb = n_mb;
+  g.mb0 = mb0;
+  g.mbw = mbw;
+  g.Hr = Hr;
+  g.nw = Wr >> 2;
+  g.Hc = Hc;
+  g.nwc = Wc >> 2;
+  return launch_group_cf<FIELD>(g, n_pic, 3, cols, cf, bidir, stream);
+}
+
+// A one-picture, one-component entry (pointer order: csrc/mc_ptrs.cuh) as a
+// group of one: the luma form (NP = 1) or U+V (NP = 2) on planes (Hr, Wr).
+template <bool FIELD, int NP>
+int blocks_one(MP2V_MC_BLOCKS_ARGS) {
+  mp2v::Group g = mp2v::group_of_one(ptrs, NP == 1 ? 0 : 1);
+  g.n_mb = n_mb;
+  g.mb0 = mb0;
+  g.mbw = mbw;
+  g.Hr = g.Hc = Hr;
+  g.nw = g.nwc = Wr >> 2;
+  return launch_group_cf<FIELD>(g, 1, NP, cols, cf, bidir ? 1 : 0, stream);
 }
 
 // A kernel that does nothing, launched with the segment kernels' block
@@ -437,19 +555,27 @@ extern "C" int mp2v_mc_field_uv(MP2V_MC_ARGS) {
 }
 
 extern "C" int mp2v_mc_recon_blocks_luma(MP2V_MC_BLOCKS_ARGS) {
-  return launch_blocks_cf<false, 1>(MP2V_MC_BLOCKS_FWD);
+  return blocks_one<false, 1>(MP2V_MC_BLOCKS_FWD);
 }
 
 extern "C" int mp2v_mc_recon_blocks_uv(MP2V_MC_BLOCKS_ARGS) {
-  return launch_blocks_cf<false, 2>(MP2V_MC_BLOCKS_FWD);
+  return blocks_one<false, 2>(MP2V_MC_BLOCKS_FWD);
 }
 
 extern "C" int mp2v_mc_field_blocks_luma(MP2V_MC_BLOCKS_ARGS) {
-  return launch_blocks_cf<true, 1>(MP2V_MC_BLOCKS_FWD);
+  return blocks_one<true, 1>(MP2V_MC_BLOCKS_FWD);
 }
 
 extern "C" int mp2v_mc_field_blocks_uv(MP2V_MC_BLOCKS_ARGS) {
-  return launch_blocks_cf<true, 2>(MP2V_MC_BLOCKS_FWD);
+  return blocks_one<true, 2>(MP2V_MC_BLOCKS_FWD);
+}
+
+extern "C" int mp2v_mc_recon_blocks_group(MP2V_MC_GROUP_ARGS) {
+  return blocks_group<false>(MP2V_MC_GROUP_FWD);
+}
+
+extern "C" int mp2v_mc_field_blocks_group(MP2V_MC_GROUP_ARGS) {
+  return blocks_group<true>(MP2V_MC_GROUP_FWD);
 }
 
 extern "C" int mp2v_mc_swar_field(MP2V_MC_ARGS) {

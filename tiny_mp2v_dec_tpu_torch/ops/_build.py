@@ -53,6 +53,14 @@ MC_BLOCKS_PTRS = 8
 # their arguments: the pointer array, metadata columns, chroma format,
 # n_mb, the first MB, mb_width, Hr, Wr, bidir, stream
 _MC_BLOCKS = [C.POINTER(_P)] + [_I] * 8 + [_P]
+# the grouped blocks form (mp2v_mc_{recon,field}_blocks_group): at most
+# MC_GROUP_MAX pictures of MC_GROUP_PTRS pointers each (ref0 Y, U, V, ref1
+# Y, U, V, the grid, the rows, out Y, U, V), then the pictures, metadata
+# columns, chroma format, n_mb, the first MB, mb_width, the luma planes' Hr
+# and Wr, the chroma planes' Hc and Wc, the pictures' bidir bits, stream
+MC_GROUP_MAX = 16
+MC_GROUP_PTRS = 11
+_MC_GROUP = [C.POINTER(_P)] + [_I] * 11 + [_P]
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "mp2v_idct8x8": [_P, _P, _I, _P],
@@ -67,6 +75,8 @@ _SIGNATURES = {
     "mp2v_mc_recon_blocks_uv": _MC_BLOCKS,
     "mp2v_mc_field_blocks_luma": _MC_BLOCKS,
     "mp2v_mc_field_blocks_uv": _MC_BLOCKS,
+    "mp2v_mc_recon_blocks_group": _MC_GROUP,
+    "mp2v_mc_field_blocks_group": _MC_GROUP,
     "mp2v_mc_roll_luma": _MC,
     "mp2v_mc_roll_uv": _MC,
     "mp2v_mc_swar": _MC,

@@ -36,7 +36,10 @@ which selects the field form) and the IDCT's residual block grid
 MB's mode, positions, window starts, phases, field units and residual row
 itself.  Their plain versions are the per-picture PyTorch glue that turns
 those two inputs into the vector form's (:func:`blocks_to_vectors`),
-then the vector form's plain versions.
+then the vector form's plain versions.  The decoder launches them grouped:
+:func:`fused_mc_recon_blocks_group` reconstructs luma and U+V of up to
+:data:`GROUP_MAX` pictures of one geometry, none of which reads another's
+output, in one launch.
 
 The JAX package's two other MC implementations (``MP2V_MC_IMPL``, see
 :mod:`.recon`) have their kernels here too:
@@ -737,6 +740,107 @@ def fused_mc_recon_uv_blocks(ref0, ref1, dense, meta, *, chroma_format: int,
     16x8 or 16x16); returns the (U, V) pair."""
     return _blocks("fused_mc_recon_uv_blocks", True, ref0, ref1, dense, meta,
                    chroma_format, mbw, mb0, bidir)
+
+
+# pictures a launch of the grouped blocks form takes at most
+GROUP_MAX = _build.MC_GROUP_MAX
+
+
+def blocks_planes(meta, *, chroma_format: int, mbw: int, device):
+    """New (Y, U, V) uint8 planes of the size the blocks form writes for
+    metadata rows of whole MB rows ``mbw`` MBs wide."""
+    xs, ys, _ = CHROMA_INFO[chroma_format]
+    H, W = meta.shape[0] // mbw * 16, mbw * 16
+    return tuple(torch.empty(s, dtype=torch.uint8, device=device)
+                 for s in ((H, W), (H >> ys, W >> xs), (H >> ys, W >> xs)))
+
+
+def fused_mc_recon_blocks_group_ref(pictures, *, chroma_format: int,
+                                    mbw: int, mb0: int = 0, out=None):
+    """Plain PyTorch version of :func:`fused_mc_recon_blocks_group` on any
+    device: :func:`fused_mc_recon_blocks_ref` and
+    :func:`fused_mc_recon_uv_blocks_ref`, picture by picture, copied into
+    ``out``'s planes where it is given."""
+    planes = []
+    for refs0, refs1, dense, meta, bidir in pictures:
+        kw = dict(chroma_format=chroma_format, mbw=mbw, mb0=mb0,
+                  bidir=bidir)
+        y = fused_mc_recon_blocks_ref(refs0[0], refs1[0], dense, meta, **kw)
+        planes.append((y, *fused_mc_recon_uv_blocks_ref(
+            tuple(refs0[1:]), tuple(refs1[1:]), dense, meta, **kw)))
+    if out is None:
+        return planes
+    for got, dst in zip(planes, out):
+        for g, d in zip(got, dst):
+            d.copy_(g)
+    return out
+
+
+def fused_mc_recon_blocks_group(pictures, *, chroma_format: int, mbw: int,
+                                mb0: int = 0, out=None):
+    """Reconstruct luma and U+V of a group of pictures in one launch (the
+    grouped blocks form).  ``pictures``: 1 to :data:`GROUP_MAX` tuples
+    ``(refs0, refs1, dense, meta, bidir)`` — the (Y, U, V) reference
+    triples and the arguments of :func:`fused_mc_recon_blocks` — none of
+    which reads another's output; each is checked as the one-picture
+    wrappers check theirs, and all must share the planes' shapes, the
+    rows' count and form (5 or 9 columns) and the device.  Returns a
+    ``(y, u, v)`` tuple a picture, each equal to the one-picture forms':
+    new planes, or ``out``'s where it is given (a triple a picture, each
+    plane contiguous uint8 of the output's shape on the pictures' device).
+    CPU tensors: the plain version; CUDA tensors: one launch of
+    ``mp2v_mc_{recon,field}_blocks_group``, counted in ``_build.LAUNCHES``
+    under that name less ``mp2v_``; any other device raises."""
+    entry = "fused_mc_recon_blocks_group"
+    pictures = list(pictures)
+    if not 0 < len(pictures) <= GROUP_MAX:
+        raise ValueError(f"{entry}: {len(pictures)} pictures; a launch "
+                         f"takes 1 to {GROUP_MAX}")
+    xs, ys, _ = CHROMA_INFO.get(chroma_format, (0, 0, 0))
+    shapes = set()
+    for refs0, refs1, dense, meta, _ in pictures:
+        if len(refs0) != 3 or len(refs1) != 3:
+            raise ValueError(f"{entry}: takes (Y, U, V) reference triples")
+        shapes.add((
+            _check_blocks(entry, refs0[:1], refs1[:1], dense, meta,
+                          chroma_format, mbw, mb0, 16, 16),
+            _check_blocks(entry, tuple(refs0[1:]), tuple(refs1[1:]), dense,
+                          meta, chroma_format, mbw, mb0, 16 >> ys, 16 >> xs),
+            tuple(meta.shape), dense.device))
+    if len(shapes) > 1:
+        raise ValueError(f"{entry}: the pictures of a group share their "
+                         f"planes' shapes, their rows' count and form and "
+                         f"their device")
+    (H, W, Hr, Wr), (Hc, Wc, Hcr, Wcr), (n, cols), dev = shapes.pop()
+    sizes = ((H, W), (Hc, Wc), (Hc, Wc))
+    if out is not None and (len(out) != len(pictures) or any(
+            len(o) != 3 or any(
+                x.device != dev or x.dtype != torch.uint8
+                or tuple(x.shape) != s or not x.is_contiguous()
+                for x, s in zip(o, sizes)) for o in out)):
+        raise ValueError(f"{entry}: out must hold a (Y, U, V) triple a "
+                         f"picture of contiguous {sizes} uint8 planes on "
+                         f"{dev}")
+    if _device_type(entry, pictures[0][2]) == "cpu":
+        return fused_mc_recon_blocks_group_ref(
+            pictures, chroma_format=chroma_format, mbw=mbw, mb0=mb0, out=out)
+    outs = out if out is not None else [
+        blocks_planes(meta, chroma_format=chroma_format, mbw=mbw, device=dev)
+        for _ in pictures]
+    ptrs, bidirs = [], 0
+    for k, ((refs0, refs1, dense, meta, bidir), planes) in enumerate(
+            zip(pictures, outs)):
+        ptrs += [x.data_ptr()
+                 for x in (*refs0, *refs1, dense, meta, *planes)]
+        bidirs |= int(bool(bidir)) << k
+    name = f"mc_{'field' if cols == 9 else 'recon'}_blocks_group"
+    rc = getattr(_build.kernel_library(), f"mp2v_{name}")(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), len(pictures), cols,
+        chroma_format, n, mb0, mbw, Hr, Wr, Hcr, Wcr, bidirs,
+        _build.stream_handle(dev))
+    _build.check(f"mp2v_{name}", rc)
+    _build.LAUNCHES[name] += 1
+    return outs
 
 
 def _frame_only(name, fld_f, fld_b):

@@ -16,14 +16,16 @@ motion.  :class:`GopRecon` decodes a chunk of pictures:
    residual blocks land in each picture's dense block grid, all in the
    chunk transport's three launches (``csrc/transport.cu``,
    :func:`transport_grid`);
-3. :meth:`GopRecon._gop` loops over the pictures in Python: per picture
-   kernels K2 (luma) and K3 (U+V) predict, add and saturate — or, in a
-   chunk with field-predicted MBs (``field_support=True``), their field
-   form K4 — in their blocks form, which reads the picture's metadata rows
-   and residual block grid as the blob's decode leaves them, so that a
-   picture takes these two launches and the three copies that pack its
-   frame; the reference list is updated on the host, where picture types
-   are known.
+3. :meth:`GopRecon._gop` splits the chunk into groups of pictures none
+   of which reads another's output (:func:`mc_groups`: a group closes
+   after each I/P picture, whose output becomes the newer reference), and
+   per group one launch of kernels K2 (luma) and K3 (U+V) — or, in a chunk
+   with field-predicted MBs (``field_support=True``), their field form K4
+   — predicts, adds and saturates every picture of the group, in their
+   grouped blocks form, which reads each picture's metadata rows and
+   residual block grid as the blob's decode leaves them; then the three
+   copies that pack each frame; the reference list is updated on the
+   host, where picture types are known.
 
 The MC kernels are those of the JAX package's ``mc_impl`` (see
 :func:`resolve_mc_impl`): ``mxu`` K2/K3/K4 (the default), ``roll`` K5/K6
@@ -60,22 +62,23 @@ from ..tokenizer.native import pair_packers
 from ..tokenizer.types import CHROMA_INFO, PictureGeometry, PictureTokens
 from . import _build
 from .idct import idct_blocks_ref
-from .mc_fused import (blocks_to_vectors, fused_mc_pred_swar_field,
-                       fused_mc_pred_swar_field_ref, fused_mc_pred_swar_yuv,
-                       fused_mc_pred_swar_yuv_ref, fused_mc_recon_blocks,
-                       fused_mc_recon_blocks_ref, fused_mc_recon_ref,
-                       fused_mc_recon_roll, fused_mc_recon_uv_blocks,
-                       fused_mc_recon_uv_blocks_ref, fused_mc_recon_uv_ref,
+from .mc_fused import (GROUP_MAX, blocks_planes, blocks_to_vectors,
+                       fused_mc_pred_swar_field, fused_mc_pred_swar_field_ref,
+                       fused_mc_pred_swar_yuv, fused_mc_pred_swar_yuv_ref,
+                       fused_mc_recon_blocks_group,
+                       fused_mc_recon_blocks_group_ref, fused_mc_recon_ref,
+                       fused_mc_recon_roll, fused_mc_recon_uv_ref,
                        fused_mc_recon_uv_roll, unpack_words)
 
 MC_IMPLS = ("mxu", "roll", "swar")
-_BLOCKS = ((fused_mc_recon_blocks, fused_mc_recon_uv_blocks),
-           (fused_mc_recon_blocks_ref, fused_mc_recon_uv_blocks_ref))
-# (impl, field support) -> (kernel wrappers, plain versions): a (luma, U+V)
-# pair of the blocks form, which reads the metadata rows and the residual
-# block grid (mxu; and roll with field support, which has no kernel); a
-# (luma, U+V) pair of the vector form (roll); or swar's one prediction
-# function: of a whole picture, or under field support of one component
+# the grouped blocks form: its kernel wrapper and its plain version
+_BLOCKS = (fused_mc_recon_blocks_group, fused_mc_recon_blocks_group_ref)
+# (impl, field support) -> (kernel wrapper(s), plain version(s)): the
+# grouped blocks form, which reads the metadata rows and the residual block
+# grid of a group of pictures (mxu; and roll with field support, which has
+# no kernel); a (luma, U+V) pair of the vector form (roll); or swar's one
+# prediction function: of a whole picture, or under field support of one
+# component
 _MC_FNS = {
     ("mxu", False): _BLOCKS,
     ("mxu", True): _BLOCKS,
@@ -134,6 +137,21 @@ def pack_meta2(tokens: PictureTokens, field_support: bool,
     return meta
 
 
+def mc_groups(step_flags) -> list:
+    """The chunk's pictures (by their step flags: bit0 is_b, bit1 is_ip) in
+    groups of consecutive indices that read no output of one another: a
+    group closes after each I/P picture, whose output becomes the newer
+    reference, after :data:`~.mc_fused.GROUP_MAX` pictures, and at the
+    chunk's end."""
+    groups, cur = [], []
+    for i, fl in enumerate(step_flags):
+        cur.append(i)
+        if fl & 2 or len(cur) == GROUP_MAX:
+            groups.append(cur)
+            cur = []
+    return groups + [cur] if cur else groups
+
+
 def _ladder(n: int, lo: int = 2048) -> int:
     """Size bucket on a {2^k, 1.5*2^k} ladder: at most 33% padding waste.
     Kept from the JAX package, where it bounded compiled shape variants,
@@ -176,11 +194,55 @@ class DeviceRecon:
                                  "kernel; use 'mxu' or 'swar'")
             use_kernels = False
         self.use_kernels = use_kernels
-        # (luma, U+V) reconstruction functions; swar's one prediction
-        # function
+        # the grouped blocks form; (luma, U+V) reconstruction functions;
+        # swar's one prediction function
         self._mc_fns = kernels if self.use_kernels else plain
         self._zero_refs = None
         self._transport = None
+        # MC kernel calls since the recon was made (:meth:`_mc`): launches
+        # on the card, on the CPU the plain versions that take their place
+        self.mc_launches = 0
+        # the blocks form's pictures waiting for their group's launch, a
+        # list while :meth:`_recon_group` gathers them (one thread drives a
+        # recon at a time)
+        self._group = None
+
+    def _mc(self, fn, *args, **kw):
+        """One MC kernel call (or its plain version's), counted."""
+        self.mc_launches += 1
+        return fn(*args, **kw)
+
+    def _recon_group(self, pictures, band=None):
+        """Reconstruct pictures none of which reads another's output:
+        ``pictures`` holds ``(ref0, ref1, dense, meta, bidir)`` a picture,
+        the references ``(y, u, v)`` tuples, the rest as
+        :meth:`_recon_from_residual` takes them; returns their ``(y, u,
+        v)`` planes.  Each picture passes through
+        :meth:`_recon_from_residual`: the other forms reconstruct it there,
+        the blocks form only makes its planes and adds it to the group,
+        which then takes one launch of luma and U+V a
+        :data:`~.mc_fused.GROUP_MAX` pictures."""
+        self._group = []
+        try:
+            outs = [self._recon_from_residual(d, m, *r0, *r1, bidir=b,
+                                              band=band)
+                    for r0, r1, d, m, b in pictures]
+            group = self._group
+        finally:
+            self._group = None
+        for k in range(0, len(group), GROUP_MAX):
+            self._launch_group(group[k:k + GROUP_MAX], band)
+        return outs
+
+    def _launch_group(self, group, band):
+        """One launch of the grouped blocks form over ``group``'s
+        ``(picture, planes)`` pairs, each picture's output into its
+        planes."""
+        geom = self.geom
+        self._mc(self._mc_fns, [p for p, _ in group],
+                 chroma_format=geom.chroma_format, mbw=geom.mb_width,
+                 mb0=0 if band is None else band[0] * geom.mb_width,
+                 out=[o for _, o in group])
 
     def _recon_from_residual(self, dense, meta, r0y, r0u, r0v, r1y, r1u,
                              r1v, bidir: bool = True, band=None):
@@ -191,40 +253,48 @@ class DeviceRecon:
         row-sharded path's band): the grid and the rows cover the band's
         MBs, the reference planes stay whole (motion reaches anywhere in
         them), and the planes returned are the band's rows.  The blocks
-        form takes both inputs as they are, one launch for luma and one for
-        U and V; the other forms take the vectors and residual planes of
+        form takes both inputs as they are: the picture's planes are made
+        here and written by its group's launch (:meth:`_recon_group`), or
+        alone, as a group of one, by one launch for luma and U+V.  The
+        other forms take the vectors and residual planes of
         :func:`.mc_fused.blocks_to_vectors`: the vector form (K5 and K6) one
         launch for luma and one for U and V, swar one prediction launch for
         the picture's three components (K7), or under field support one per
         component (K8), then a plain PyTorch epilogue per component."""
         geom = self.geom
+        if self._mc_fns in _BLOCKS:
+            planes = blocks_planes(meta, chroma_format=geom.chroma_format,
+                                   mbw=geom.mb_width, device=dense.device)
+            picture = ((r0y, r0u, r0v), (r1y, r1u, r1v), dense, meta, bidir)
+            if self._group is None:
+                self._launch_group([(picture, planes)], band)
+            else:
+                self._group.append((picture, planes))
+            return planes
+        fns = self._mc_fns
         kw = dict(chroma_format=geom.chroma_format, mbw=geom.mb_width,
                   mb0=0 if band is None else band[0] * geom.mb_width)
-        fns = self._mc_fns
-        if fns in _BLOCKS:
-            luma = fns[0](r0y, r1y, dense, meta, bidir=bidir, **kw)
-            u, v = fns[1]((r0u, r0v), (r1u, r1v), dense, meta, bidir=bidir,
-                          **kw)
-            return luma, u, v
         (res_y,), vy, _, _ = blocks_to_vectors(r0y, dense, meta, **kw)
         res_c, vc, ch, cw = blocks_to_vectors(r0u, dense, meta, uv=True,
                                               **kw)
         if isinstance(fns, tuple):
-            luma = fns[0](r0y, r1y, res_y, *vy, h=16, w=16, bidir=bidir)
-            u, v = fns[1]((r0u, r0v), (r1u, r1v), res_c, *vc, h=ch, w=cw,
-                          bidir=bidir)
+            luma = self._mc(fns[0], r0y, r1y, res_y, *vy, h=16, w=16,
+                            bidir=bidir)
+            u, v = self._mc(fns[1], (r0u, r0v), (r1u, r1v), res_c, *vc,
+                            h=ch, w=cw, bidir=bidir)
             return luma, u, v
         mbw = geom.mb_width
         mbh = meta.shape[0] // mbw
         refs0, refs1 = (r0y, r0u, r0v), (r1y, r1u, r1v)
         tiles = ((16, 16), (ch, cw), (ch, cw))
         if self.field_support:
-            words = [fns(r0, r1, *v, h=h, w=w, bidir=bidir, H=mbh * h)
+            words = [self._mc(fns, r0, r1, *v, h=h, w=w, bidir=bidir,
+                              H=mbh * h)
                      for r0, r1, v, (h, w) in zip(refs0, refs1, (vy, vc, vc),
                                                   tiles)]
         else:
-            words = fns(refs0, refs1, vy[:6], vc[:6], vy[6], h=ch, w=cw,
-                        bidir=bidir, H=mbh * 16)
+            words = self._mc(fns, refs0, refs1, vy[:6], vc[:6], vy[6], h=ch,
+                             w=cw, bidir=bidir, H=mbh * 16)
         coded = ((vy[6] & 4) != 0).reshape(mbh, 1, mbw, 1)
 
         def epilogue(word, res, h, w):
@@ -311,6 +381,12 @@ class GopRecon:
         # free slot, then for the slot's last upload (the first use of a
         # blob shape also makes its slot)
         self.slot_wait_ns = 0
+
+    @property
+    def mc_launches(self) -> int:
+        """The MC kernel calls of this recon's pictures (see
+        :class:`DeviceRecon`)."""
+        return self.inner.mc_launches
 
     def _layout(self, cap_pairs: int, cap_k: int):
         """Byte offsets of the seven sections inside the blob (each 4-byte
@@ -421,12 +497,13 @@ class GopRecon:
                 *self._meta_flags(blob, layout))
 
     def _gop(self, blob, r0, r1, *, cap_pairs, cap_k, step_flags, bidir):
-        """Reconstruct the chunk's pictures in order.  ``step_flags``: the
-        host copy of the real pictures' flags (bit0 is_b, bit1 is_ip).
-        B pictures predict from (r0, r1), I/P pictures from (r1, r1) with
-        the forward-only kernels (their MBs carry no backward bit); an I/P
-        output then becomes the newer reference.  Returns (r0, r1, packed
-        (t, frame_bytes) uint8)."""
+        """Reconstruct the chunk's pictures in order, a group of
+        :func:`mc_groups` at a time.  ``step_flags``: the host copy of the
+        real pictures' flags (bit0 is_b, bit1 is_ip).  B pictures predict
+        from (r0, r1), I/P pictures from (r1, r1) with the forward-only
+        kernels (their MBs carry no backward bit); an I/P output, the last
+        of its group, then becomes the newer reference.  Returns (r0, r1,
+        packed (t, frame_bytes) uint8)."""
         geom = self.geom
         dense, meta, _ = self._decode_blob(blob, cap_pairs=cap_pairs,
                                            cap_k=cap_k)
@@ -436,18 +513,19 @@ class GopRecon:
         ny, nc = geom.height * geom.width, ch * cw
         packs = torch.empty((len(step_flags), ny + 2 * nc),
                             dtype=torch.uint8, device=blob.device)
-        for i, fl in enumerate(step_flags):
-            is_b, is_ip = bool(fl & 1), bool(fl & 2)
-            out = self.inner._recon_from_residual(
-                dense[i], meta[i], *(r0 if is_b else r1), *r1,
-                bidir=bidir and is_b)
-            packs[i, :ny].view(geom.height, geom.width).copy_(
-                out[0][:geom.height, :geom.width])
-            packs[i, ny:ny + nc].view(ch, cw).copy_(out[1][:ch, :cw])
-            packs[i, ny + nc:].view(ch, cw).copy_(out[2][:ch, :cw])
+        for group in mc_groups(step_flags):
+            is_b = [bool(step_flags[i] & 1) for i in group]
+            outs = self.inner._recon_group([
+                (r0 if b else r1, r1, dense[i], meta[i], bidir and b)
+                for i, b in zip(group, is_b)])
+            for i, out in zip(group, outs):
+                packs[i, :ny].view(geom.height, geom.width).copy_(
+                    out[0][:geom.height, :geom.width])
+                packs[i, ny:ny + nc].view(ch, cw).copy_(out[1][:ch, :cw])
+                packs[i, ny + nc:].view(ch, cw).copy_(out[2][:ch, :cw])
             # reference-list update (reference: decoder.cpp:299-304)
-            if is_ip:
-                r0, r1 = r1, out
+            if step_flags[group[-1]] & 2:
+                r0, r1 = r1, outs[-1]
         return r0, r1, packs
 
     # staging slots per (cap_pairs, cap_k), taken in turn: one being

@@ -10,7 +10,8 @@ the reconstruction over devices, both on the decoder's own kernels:
   next picture's references.
 * :class:`StreamBatchRecon` (serving): N independent streams advance one
   picture per step, their stream axis split across the devices; each
-  device reconstructs its streams one after the other.
+  device reconstructs its streams together (under ``mxu`` one MC launch
+  a step).
 
 Both carry the tokens as the chunk path's blob (``GopRecon.prepare``, the
 picture or the stream in place of the chunk's picture index), upload it
@@ -115,6 +116,11 @@ class _Sharded:
                 self._recons[d] = DeviceRecon(geom, d, field_support,
                                               self.inner.mc_impl, use_kernels)
 
+    @property
+    def mc_launches(self) -> int:
+        """The MC kernel calls of every device's reconstructor."""
+        return sum(r.mc_launches for r in self._recons.values())
+
 
 class RowShardedRecon(_Sharded):
     """One picture reconstructed in ``len(devices)`` bands of MB rows, band
@@ -213,7 +219,9 @@ class StreamBatchRecon(_Sharded):
     def dispatch(self, staged, is_b, is_ip, refs0=None, refs1=None):
         """The device half of :meth:`step` for a staged step: upload,
         decode the blob once per distinct device, then each device's
-        streams in turn with the production kernels."""
+        streams, which read no output of one another, as one group
+        (``DeviceRecon._recon_group``: one launch a device with the
+        production kernels)."""
         refs0 = self._zero_refs() if refs0 is None else tuple(refs0)
         refs1 = self._zero_refs() if refs1 is None else tuple(refs1)
         decoded = self.transport.upload_decode(staged, self.devices)
@@ -222,12 +230,14 @@ class StreamBatchRecon(_Sharded):
         for k, dev in enumerate(self.devices):
             dense, meta, _ = decoded[dev]
             with on_device(dev):
+                pictures = []
                 for i in range(k * self.s_local, (k + 1) * self.s_local):
                     r0 = tuple(p[i].to(dev) for p in refs0)
                     r1 = tuple(p[i].to(dev) for p in refs1)
-                    out = self._recons[dev]._recon_from_residual(
-                        dense[i], meta[i], *(r0 if is_b[i] else r1), *r1)
-                    outs.append(tuple(o.to(dev0) for o in out))
+                    pictures.append((r0 if is_b[i] else r1, r1, dense[i],
+                                     meta[i], True))
+                outs += [tuple(o.to(dev0) for o in out) for out in
+                         self._recons[dev]._recon_group(pictures)]
         planes = tuple(torch.stack([o[c] for o in outs]) for c in range(3))
         # the reference-list update, picked on the host
         # (reference: decoder.cpp:299-304)

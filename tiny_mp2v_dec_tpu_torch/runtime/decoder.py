@@ -339,7 +339,13 @@ class MP2VDecoder:
         #   the dispatch, not device time (span dispatch; its children
         #   upload and recon);
         # - output_s: host output's fetch of delivered frames
-        #   (perf_counter; inside the deliver spans).
+        #   (perf_counter; inside the deliver spans);
+        # - mc_launches: the MC kernel launches its pictures took (on the
+        #   CPU, the plain versions' calls in their place), every path:
+        #   under mxu one a group of pictures that read no output of one
+        #   another (ops/recon.py mc_groups; a decode_batch step's streams;
+        #   one picture live and a band in mesh="rows"), so that pictures
+        #   over mc_launches is the pictures a launch.
         # decode_batch alone (0 on the other paths):
         # - batch_tokenize_s: its tokenize-every-stream phase, the device
         #   idle (span batch_tokenize, caller);
@@ -353,7 +359,7 @@ class MP2VDecoder:
                       "slot_wait_s": 0.0, "fill_wait_s": 0.0,
                       "chunk_wait_s": 0.0, "batch_tokenize_s": 0.0,
                       "batch_steps": 0, "noop_pictures": 0,
-                      "batch_copy_bytes": 0}
+                      "batch_copy_bytes": 0, "mc_launches": 0}
 
     # ------------------------------------------------------------------
     def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
@@ -547,8 +553,10 @@ class MP2VDecoder:
             self.stats["slot_wait_s"] += sb.transport.slot_wait_ns / 1e9
             self.spans.end(span, "prepare", step, t1)
             span = self.spans.begin(t1)
+            launched = sb.mc_launches
             refs0, refs1, planes = sb.dispatch(staged, is_b, is_ip, refs0,
                                                refs1)
+            self.stats["mc_launches"] += sb.mc_launches - launched
             shared = (tuple(host_copy(p) for p in planes)
                       if self.config.output_host else None)
             t2 = time.time_ns()
@@ -708,10 +716,12 @@ class MP2VDecoder:
         t0 = time.time_ns()
         span = self.spans.begin(t0)
         # B-free chunks run the forward-only kernels
+        launched = recon.mc_launches
         r0, r1, packs = recon.dispatch(
             staged, self._refs[0], self._refs[1],
             bidir=any(ph.picture_coding_type == H.PCT_B
                       for _, _, ph in batch), unit=unit)
+        self.stats["mc_launches"] += recon.mc_launches - launched
         self._refs = [r0, r1]
         event = None
         if packs.is_cuda:
@@ -861,7 +871,9 @@ class MP2VDecoder:
         pct = ph.picture_coding_type
         ip = pct in (H.PCT_I, H.PCT_P)
         ref0, ref1 = (self._refs[1], None) if ip else self._refs
+        launched = recon.mc_launches
         planes = recon(tokens, ref0, ref1)
+        self.stats["mc_launches"] += recon.mc_launches - launched
         if ip:
             self._refs = [self._refs[1], planes]
         t1 = time.time_ns()

@@ -49,7 +49,11 @@ span                thread, inside                         counter (``stats``)
 ``decode_batch`` also counts, with no span, its device steps
 (``batch_steps``), the no-op pictures that pad them (``noop_pictures``)
 and the bytes its output stack and reference picks write on the device
-(``batch_copy_bytes``).
+(``batch_copy_bytes``).  Every path counts, with no span, the MC kernel
+launches its pictures took (``mc_launches``, inside ``recon`` on the
+chunk paths and inside ``dispatch`` in ``decode_batch`` and the row
+bands): under ``mxu`` one a group of pictures that read no output of one
+another, so that ``pictures / mc_launches`` is the pictures a launch.
 
 A span and its counter come from the same two clock readings.  Off, a
 span costs one test of the log in :meth:`Spans.begin` and one of its
