@@ -27,7 +27,7 @@ KEPT = {"pictures", "tokenize_s", "fill_s", "device_s", "output_s",
 BATCH = {"batch_tokenize_s", "batch_steps", "noop_pictures",
          "batch_copy_bytes"}
 # the counters of every path since
-EVERY = {"mc_launches"}
+EVERY = {"mc_launches", "coded_blocks", "coded_bytes"}
 
 
 def _decoder(**kw):

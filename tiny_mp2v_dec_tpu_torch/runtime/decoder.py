@@ -345,7 +345,11 @@ class MP2VDecoder:
         #   under mxu one a group of pictures that read no output of one
         #   another (ops/recon.py mc_groups; a decode_batch step's streams;
         #   one picture live and a band in mesh="rows"), so that pictures
-        #   over mc_launches is the pictures a launch.
+        #   over mc_launches is the pictures a launch;
+        # - coded_blocks: the coded 8x8 blocks the tokenizer found (each
+        #   picture's n_coded_blocks), every path;
+        # - coded_bytes: the bytes of the slices the tokenizer walked, each
+        #   from its start code to the next start code, every path.
         # decode_batch alone (0 on the other paths):
         # - batch_tokenize_s: its tokenize-every-stream phase, the device
         #   idle (span batch_tokenize, caller);
@@ -359,7 +363,8 @@ class MP2VDecoder:
                       "slot_wait_s": 0.0, "fill_wait_s": 0.0,
                       "chunk_wait_s": 0.0, "batch_tokenize_s": 0.0,
                       "batch_steps": 0, "noop_pictures": 0,
-                      "batch_copy_bytes": 0, "mc_launches": 0}
+                      "batch_copy_bytes": 0, "mc_launches": 0,
+                      "coded_blocks": 0, "coded_bytes": 0}
 
     # ------------------------------------------------------------------
     def _gop_recon_for(self, geom: PictureGeometry, field_support: bool,
@@ -493,7 +498,8 @@ class MP2VDecoder:
         self._n_batches += 1
         seqs = [q for q, _ in done]
         for _, st in done:
-            for k in ("pictures", "tokenize_s", "bad_slices"):
+            for k in ("pictures", "tokenize_s", "bad_slices",
+                      "coded_blocks", "coded_bytes"):
                 self.stats[k] += st[k]
         by_geom: dict = {}
         for i, q in enumerate(seqs):
@@ -630,7 +636,7 @@ class MP2VDecoder:
                        "pcext": H.PictureCodingExtension(
                            f_code=((ph.forward_f_code,) * 2,
                                    (ph.backward_f_code,) * 2)),
-                       "slices": []}
+                       "slices": [], "slice_bytes": 0}
             elif code in (H.SEQUENCE_END_CODE, H.SEQUENCE_ERROR_CODE):
                 if cur is not None:
                     on_picture(data, cur)
@@ -639,6 +645,8 @@ class MP2VDecoder:
             elif H.SLICE_START_CODE_MIN <= code <= H.SLICE_START_CODE_MAX:
                 if cur is not None:
                     cur["slices"].append((r_pos, code))
+                    end = offs[i + 1] if i + 1 < len(offs) else len(data)
+                    cur["slice_bytes"] += end - off
         if cur is not None:
             on_picture(data, cur)
 
@@ -833,6 +841,8 @@ class MP2VDecoder:
         self.stats["pictures"] += 1
         self.stats["bad_slices"] += tokens.bad_slices
         self.stats["tokenize_s"] += (t1 - t0) / 1e9
+        self.stats["coded_blocks"] += tokens.n_coded_blocks
+        self.stats["coded_bytes"] += cur["slice_bytes"]
         self.spans.end(span, "tokenize", unit, t1)
         return tokens, geom, ph
 
